@@ -1,0 +1,150 @@
+// Base-field and Fq2 kernels: mont_mul, mod_add, mod_sub, mod_neg, fq2_mul,
+// fq2_sq, fq2_xi.
+//
+// They replace the Pallas TPU kernels of bn_tpu/ops/mont_pallas.py:
+//   bn_mont_mul <- mont_mul_pallas (_k_mont_mul)   bn_fq2_mul <- fq2_mul_pallas
+//   bn_mod_add  <- mod_add_pallas  (_k_add)        bn_fq2_sq  <- fq2_sq_pallas
+//   bn_mod_sub  <- mod_sub_pallas  (_k_sub)        bn_fq2_xi  <- fq2_xi_pallas
+//   bn_mod_neg  <- mod_neg_pallas  (_k_neg)
+// The TPU kernels walk (8, 128) tiles of 1024 batch elements with 16-bit
+// limbs in 32-bit lanes.  Here one thread owns one field element (or one Fq2
+// element): it loads the sixteen limbs, packs them into eight 32-bit words,
+// computes in registers and unpacks on the store.  The batch is the innermost
+// axis, so a warp's load of one limb is one coalesced 128-byte line; the
+// ragged edge is a bounds test, not padding.
+//
+// What bounds them on an H100: mod_add/sub/neg and fq2_xi do a few dozen
+// integer adds per 64-128 bytes moved and are bound by device-memory bytes
+// (and, at the sizes of one pairing step, by launch latency).  mont_mul,
+// fq2_mul and fq2_sq are bound by integer multiply-add throughput: 136 32x32->64
+// multiply-adds per base-field product.  The design keeps every operand in
+// registers (an Fq2 product needs about 60) so that neither spills.
+#include "launch.cuh"
+#include "tower.cuh"
+
+#define BN_BLOCK 128
+
+// Flat elementwise kernels over `rows` field elements of batch B: thread t
+// owns element (row, b) = (t / B, t % B), whose limb i is at (row*16 + i)*B + b.
+enum { OP_MUL = 0, OP_ADD = 1, OP_SUB = 2 };
+
+template <int OP>
+__global__ void __launch_bounds__(BN_BLOCK)
+k_binary(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
+         int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * BN_NLIMB * B + (t % B);
+  Fq x = fq_load(a + off, B);
+  Fq y = fq_load(b + off, B);
+  Fq r;
+  if (OP == OP_MUL) r = fq_mont_mul(x, y, m);
+  if (OP == OP_ADD) r = fq_add(x, y, m);
+  if (OP == OP_SUB) r = fq_sub(x, y, m);
+  fq_store(o + off, B, r);
+}
+
+__global__ void __launch_bounds__(BN_BLOCK)
+k_neg(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * BN_NLIMB * B + (t % B);
+  fq_store(o + off, B, fq_neg(fq_load(a + off, B), m));
+}
+
+// Fq2 kernels over `rows` Fq2 elements of batch B: element (row, b) has its
+// two coefficients at (row*2 + c)*16*B + b.
+__global__ void __launch_bounds__(BN_BLOCK)
+k_fq2_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
+          int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 2 * BN_NLIMB * B + (t % B);
+  fq2_store(o + off, B, fq2_mul(fq2_load(a + off, B), fq2_load(b + off, B), m));
+}
+
+enum { OP_SQ = 0, OP_XI = 1 };
+
+template <int OP>
+__global__ void __launch_bounds__(BN_BLOCK)
+k_fq2_unary(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 2 * BN_NLIMB * B + (t % B);
+  Fq2 x = fq2_load(a + off, B);
+  fq2_store(o + off, B, OP == OP_SQ ? fq2_sq(x, m) : fq2_xi(x, m));
+}
+
+// Register-only probe of the card's rate for the multiply-add the Montgomery
+// product is made of (32x32 -> 64 bits, plus a 64-bit addend): eight
+// independent dependent chains per thread, no memory traffic inside the loop.
+#define BN_PROBE_CHAINS 8
+__global__ void k_imad_probe(uint64_t* out, int iters, uint32_t y) {
+  uint64_t acc[BN_PROBE_CHAINS];
+#pragma unroll
+  for (int k = 0; k < BN_PROBE_CHAINS; k++) acc[k] = bn_tid() * 2654435761u + k;
+  for (int it = 0; it < iters; it++) {
+#pragma unroll
+    for (int k = 0; k < BN_PROBE_CHAINS; k++) acc[k] = (uint64_t)(uint32_t)acc[k] * y + acc[k];
+  }
+  uint64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < BN_PROBE_CHAINS; k++) s ^= acc[k];
+  out[bn_tid()] = s;
+}
+
+#define BN_LAUNCH(kernel, n, ...)                                              \
+  kernel<<<bn_grid((n), BN_BLOCK), BN_BLOCK, 0, (cudaStream_t)stream>>>(__VA_ARGS__); \
+  return (int)cudaGetLastError();
+
+extern "C" {
+
+int bn_mont_mul(const void* a, const void* b, void* o, long long rows, long long B,
+                const uint32_t* mod, uint32_t inv, void* stream) {
+  BN_LAUNCH(k_binary<OP_MUL>, rows * B, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+int bn_mod_add(const void* a, const void* b, void* o, long long rows, long long B,
+               const uint32_t* mod, uint32_t inv, void* stream) {
+  BN_LAUNCH(k_binary<OP_ADD>, rows * B, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+int bn_mod_sub(const void* a, const void* b, void* o, long long rows, long long B,
+               const uint32_t* mod, uint32_t inv, void* stream) {
+  BN_LAUNCH(k_binary<OP_SUB>, rows * B, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+int bn_mod_neg(const void* a, void* o, long long rows, long long B, const uint32_t* mod,
+               uint32_t inv, void* stream) {
+  BN_LAUNCH(k_neg, rows * B, (const int32_t*)a, (int32_t*)o, rows, B, bn_make_mod(mod, inv))
+}
+
+int bn_fq2_mul(const void* a, const void* b, void* o, long long rows, long long B,
+               const uint32_t* mod, uint32_t inv, void* stream) {
+  BN_LAUNCH(k_fq2_mul, rows * B, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+int bn_fq2_sq(const void* a, void* o, long long rows, long long B, const uint32_t* mod,
+              uint32_t inv, void* stream) {
+  BN_LAUNCH(k_fq2_unary<OP_SQ>, rows * B, (const int32_t*)a, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+int bn_fq2_xi(const void* a, void* o, long long rows, long long B, const uint32_t* mod,
+              uint32_t inv, void* stream) {
+  BN_LAUNCH(k_fq2_unary<OP_XI>, rows * B, (const int32_t*)a, (int32_t*)o, rows, B,
+            bn_make_mod(mod, inv))
+}
+
+// out must hold blocks*threads uint64 values; each thread does
+// iters * BN_PROBE_CHAINS multiply-adds.
+int bn_imad_probe(void* out, int blocks, int threads, int iters, void* stream) {
+  k_imad_probe<<<blocks, threads, 0, (cudaStream_t)stream>>>((uint64_t*)out, iters, 0x9E3779B1u);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,405 @@
+"""The Fq2 / Fq6 / Fq12 extension tower over batched limb tensors.
+
+Counterpart of the JAX package's fields/tower.py.  Tensor layout (structure
+axes lead, batch axis last):
+    Fq   : (..., L, B)
+    Fq2  : (..., 2, L, B)      Fq2  = Fq[u]/(u^2+1)
+    Fq6  : (..., 3, 2, L, B)   Fq6  = Fq2[v]/(v^3-xi), xi = 9+u
+    Fq12 : (..., 2, 3, 2, L, B) Fq12 = Fq6[w]/(w^2-v)
+
+fq2_mul, fq2_sq, fq2_mul_by_xi, fq12_mul, fq12_sq, fq12_mul_by_024_prescaled
+and fq12_cyclotomic_sq are one kernel each on the card (ops/mont_cuda.py,
+ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
+their independent Fq2 products along a new leading axis and send them
+through one fq2_mul call.  Formulas mirror the reference crate
+(src/fields/fq2.rs, fq6.rs, fq12.rs), which pin the golden vectors;
+addition and negation work on whole tower tensors at once.
+"""
+
+from __future__ import annotations
+
+import functools
+import types
+
+import numpy as np
+import torch
+
+from .. import oracle as O
+from .. import params as P
+from ..ops import mont_cuda as mc
+from ..ops import tower_cuda as tc
+from . import fp
+
+FQ = fp.FQ
+
+# ---------------------------------------------------------------------------
+# packing / component access
+# ---------------------------------------------------------------------------
+
+
+def c2(a, i):
+    return a[..., i, :, :]
+
+
+def pack2(x0, x1):
+    return torch.stack((x0, x1), dim=-3)
+
+
+def c6(a, i):
+    return a[..., i, :, :, :]
+
+
+def pack6(x0, x1, x2):
+    return torch.stack((x0, x1, x2), dim=-4)
+
+
+def c12(a, i):
+    return a[..., i, :, :, :, :]
+
+
+def pack12(x0, x1):
+    return torch.stack((x0, x1), dim=-5)
+
+
+# generic (tower-shape-agnostic) linear ops
+def add(a, b):
+    return fp.add(FQ, a, b)
+
+
+def sub(a, b):
+    return fp.sub(FQ, a, b)
+
+
+def neg(a):
+    return fp.neg(FQ, a)
+
+
+def double(a):
+    return fp.add(FQ, a, a)
+
+
+# ---------------------------------------------------------------------------
+# constants (Montgomery form, broadcastable, cached per device)
+# ---------------------------------------------------------------------------
+
+
+def _fq_const(v: int) -> np.ndarray:
+    return P.int_to_limbs(P.to_mont(v % P.Q, P.Q)).reshape(P.NLIMBS, 1)
+
+
+def _fq2_const(t) -> np.ndarray:
+    return np.stack([_fq_const(t[0]), _fq_const(t[1])])  # (2, L, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _frob_consts_np():
+    """Montgomery-form Frobenius gamma tables, derived in oracle.frob_coeffs."""
+    fq6_c1, fq6_c2, fq12_c1 = O.frob_coeffs()
+    return (
+        tuple(_fq2_const(t) for t in fq6_c1),
+        tuple(_fq2_const(t) for t in fq6_c2),
+        tuple(_fq2_const(t) for t in fq12_c1),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _frob_consts(device_str: str):
+    dev = torch.device(device_str)
+    return tuple(
+        tuple(torch.from_numpy(c.astype(np.int32)).to(dev) for c in table)
+        for table in _frob_consts_np()
+    )
+
+
+def zeros2(batch_shape, device=None):
+    return fp.zeros(FQ, tuple(batch_shape[:-1]) + (2, batch_shape[-1]), device)
+
+
+def ones2(batch_shape, device=None):
+    return pack2(fp.ones(FQ, batch_shape, device), fp.zeros(FQ, batch_shape, device))
+
+
+def ones6(batch_shape, device=None):
+    return pack6(ones2(batch_shape, device), zeros2(batch_shape, device), zeros2(batch_shape, device))
+
+
+def ones12(batch_shape, device=None):
+    z6 = fp.zeros(FQ, tuple(batch_shape[:-1]) + (3, 2, batch_shape[-1]), device)
+    return pack12(ones6(batch_shape, device), z6)
+
+
+def zeros12(batch_shape, device=None):
+    return fp.zeros(FQ, tuple(batch_shape[:-1]) + (2, 3, 2, batch_shape[-1]), device)
+
+
+# ---------------------------------------------------------------------------
+# Fq2   (reference: src/fields/fq2.rs)
+# ---------------------------------------------------------------------------
+
+
+def fq2_mul(a, b):
+    """Karatsuba, 3 Fq products (src/fields/fq2.rs:139-155); one kernel."""
+    return mc.fq2_mul(a, b, P.Q)
+
+
+def fq2_sq(a):
+    """Complex squaring (src/fields/fq2.rs:112-123); one kernel."""
+    return mc.fq2_sq(a, P.Q)
+
+
+def fq2_scale_fq(a, k):
+    """Multiply both components by an Fq element k (one stacked mul)."""
+    kb = k[..., None, :, :] if k.dim() < a.dim() else k
+    return fp.mul(FQ, a, kb)
+
+
+def fq2_mul_by_xi(a):
+    """Multiply by xi = 9 + u without a product; one kernel."""
+    return mc.fq2_xi(a, P.Q)
+
+
+def fq2_conj(a):
+    return pack2(c2(a, 0), fp.neg(FQ, c2(a, 1)))
+
+
+def fq2_frob(a, power: int):
+    return a if power % 2 == 0 else fq2_conj(a)
+
+
+def fq2_inv(a):
+    """Algorithm 8 (src/fields/fq2.rs:125-136); one Fermat chain."""
+    a0, a1 = c2(a, 0), c2(a, 1)
+    s0, s1 = fp.mul_many(FQ, [(a0, a0), (a1, a1)])
+    t = fp.inv(FQ, fp.add(FQ, s0, s1))
+    p0, p1 = fp.mul_many(FQ, [(a0, t), (a1, t)])
+    return pack2(p0, fp.neg(FQ, p1))
+
+
+# ---------------------------------------------------------------------------
+# Fq6   (reference: src/fields/fq6.rs)
+# ---------------------------------------------------------------------------
+
+# the field the shared Fq6 formulas of ops/tower_cuda.py run on here: the
+# dispatching wrappers
+_F = types.SimpleNamespace(add=add, sub=sub, fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi)
+
+
+def fq6_mul_by_nonresidue(a):
+    """v * a (src/fields/fq6.rs:59-65)."""
+    return tc.fq6_nr(_F, a)
+
+
+def fq6_mul(a, b):
+    """Karatsuba: 6 Fq2 products, one stacked fq2_mul (src/fields/fq6.rs:144-158)."""
+    return tc.fq6_mul(_F, a, b)
+
+
+def fq6_inv(a):
+    """Norm-based inversion (src/fields/fq6.rs:129-141)."""
+    a0, a1, a2 = (c6(a, i) for i in range(3))
+    xi_a2 = fq2_mul_by_xi(a2)
+    s_a0, a1xa2, s_a2, a0a1, s_a1, a0a2 = fq2_mul(
+        torch.stack([a0, a1, a2, a0, a1, a0]), torch.stack([a0, xi_a2, a2, a1, a1, a2])
+    )
+    k0 = sub(s_a0, a1xa2)
+    k1 = sub(fq2_mul_by_xi(s_a2), a0a1)
+    k2 = sub(s_a1, a0a2)
+    p = fq2_mul(torch.stack([a2, a1, a0]), torch.stack([k1, k2, k0]))
+    norm = add(fq2_mul_by_xi(add(p[0], p[1])), p[2])
+    t = fq2_inv(norm)
+    p = fq2_mul(t[None], torch.stack([k0, k1, k2]))
+    return pack6(p[0], p[1], p[2])
+
+
+def fq6_frob(a, power: int):
+    """(src/fields/fq6.rs:75-81)"""
+    c1t, c2t, _ = _frob_consts(str(a.device))
+    x0 = fq2_frob(c6(a, 0), power)
+    x1 = fq2_mul(fq2_frob(c6(a, 1), power), c1t[power % 6])
+    x2 = fq2_mul(fq2_frob(c6(a, 2), power), c2t[power % 6])
+    return pack6(x0, x1, x2)
+
+
+# ---------------------------------------------------------------------------
+# Fq12   (reference: src/fields/fq12.rs)
+# ---------------------------------------------------------------------------
+
+
+def fq12_mul(a, b):
+    """Karatsuba, 54 Fq products (src/fields/fq12.rs:295-307); one kernel."""
+    return tc.fq12_mul(a, b, P.Q)
+
+
+def fq12_sq(a):
+    """36 Fq products (src/fields/fq12.rs:275-282); one kernel."""
+    return tc.fq12_sq(a, P.Q)
+
+
+def fq12_inv(a):
+    """(src/fields/fq12.rs:284-292)"""
+    a0, a1 = c12(a, 0), c12(a, 1)
+    both = torch.stack([a0, a1])
+    p = fq6_mul(both, both)
+    t = fq6_inv(sub(p[0], fq6_mul_by_nonresidue(p[1])))
+    p = fq6_mul(both, t[None])
+    return pack12(p[0], neg(p[1]))
+
+
+def fq12_conj(a):
+    """Unitary inverse (src/fields/fq12.rs:103-105)."""
+    return pack12(c12(a, 0), neg(c12(a, 1)))
+
+
+def fq12_frob(a, power: int):
+    """(src/fields/fq12.rs:90-95)"""
+    _, _, c12t = _frob_consts(str(a.device))
+    x0 = fq6_frob(c12(a, 0), power)
+    x1 = fq6_frob(c12(a, 1), power)
+    # scale all three Fq2 components of x1 by the gamma constant
+    x1 = fq2_mul(x1, c12t[power % 12])
+    return pack12(x0, x1)
+
+
+def fq12_mul_by_024_prescaled(a, ell_0, scaled):
+    """Sparse line multiply (src/fields/fq12.rs:107-176) taking the G1-scaled
+    pair as one (2, 2, L, B) tensor (scaled[0] = ell_vw*y, scaled[1] =
+    ell_vv*x); one kernel."""
+    return tc.fq12_mul024_pre(a, ell_0, scaled, P.Q)
+
+
+def fq12_cyclotomic_sq(a):
+    """Granger-Scott (src/fields/fq12.rs:178-227); one kernel."""
+    return tc.fq12_cyclo_sq(a, P.Q)
+
+
+@functools.lru_cache(maxsize=None)
+def _z_naf():
+    """Non-adjacent form of the BN parameter z, MSB first: 63 digits,
+    24 nonzero (vs 28 set bits in binary) — each -1 costs only a free
+    conjugate for cyclotomic-subgroup elements."""
+    n = P.Z_BN
+    naf = []
+    while n:
+        if n & 1:
+            d = 2 - (n % 4)
+            naf.append(d)
+            n -= d
+        else:
+            naf.append(0)
+        n >>= 1
+    return tuple(reversed(naf))
+
+
+def _cyclo_sq_run(res, n: int):
+    """n successive cyclotomic squarings, one kernel call each."""
+    for _ in range(n):
+        res = fq12_cyclotomic_sq(res)
+    return res
+
+
+def _exp_by_neg_z_cyclotomic(a):
+    """exp_by_neg_z for a PROVABLY cyclotomic input (the final-exp hard
+    chunk): NAF ladder with a^-1 = conj(a).  Mathematically equal to the
+    reference's binary ladder (src/fields/fq12.rs:97-101, 229-246)."""
+    naf = _z_naf()
+    a_conj = fq12_conj(a)
+    assert naf[0] == 1
+    res = a
+    pending = 0
+    for d in naf[1:]:
+        pending += 1
+        if d:
+            res = _cyclo_sq_run(res, pending)
+            pending = 0
+            res = fq12_mul(res, a if d == 1 else a_conj)
+    if pending:
+        res = _cyclo_sq_run(res, pending)
+    return fq12_conj(res)
+
+
+def final_exponentiation(f):
+    """Easy chunk + Fuentes-et-al. hard chunk, straight line
+    (src/fields/fq12.rs:41-88): every Fq12 operation below is one kernel."""
+    binv = fq12_inv(f)
+    # easy chunk (fq12.rs:41-52)
+    a = fq12_conj(f)
+    c = fq12_mul(a, binv)
+    d = fq12_frob(c, 2)
+    s = fq12_mul(d, c)
+    # hard chunk: the reference's a..v chain (fq12.rs:54-84).  All inputs
+    # to exp_by_neg_z here are cyclotomic (s = (f^(q^6-1))^(q^2+1) and its
+    # cyclotomic closures), so the NAF ladder's conj-as-inverse is valid.
+    a2 = _exp_by_neg_z_cyclotomic(s)
+    b2 = fq12_cyclotomic_sq(a2)
+    c2_ = fq12_cyclotomic_sq(b2)
+    d2 = fq12_mul(c2_, b2)
+    e2 = _exp_by_neg_z_cyclotomic(d2)
+    f2 = fq12_cyclotomic_sq(e2)
+    g2 = _exp_by_neg_z_cyclotomic(f2)
+    h2 = fq12_conj(d2)
+    i2 = fq12_conj(g2)
+    j2 = fq12_mul(i2, e2)
+    k2 = fq12_mul(j2, h2)
+    l2 = fq12_mul(k2, b2)
+    m2 = fq12_mul(k2, e2)
+    n2 = fq12_mul(s, m2)
+    o2 = fq12_frob(l2, 1)
+    p2 = fq12_mul(o2, n2)
+    q2 = fq12_frob(k2, 2)
+    r2 = fq12_mul(q2, p2)
+    s2_ = fq12_conj(s)
+    t2 = fq12_mul(s2_, l2)
+    u2 = fq12_frob(t2, 3)
+    return fq12_mul(u2, r2)
+
+
+# ---------------------------------------------------------------------------
+# host <-> device conversion for tower elements
+# ---------------------------------------------------------------------------
+
+
+def fq2_to_device(vals, device=None):
+    """vals: list of oracle Fq2 tuples -> (2, L, B)."""
+    return torch.stack(
+        [
+            fp.to_device(FQ, [v[0] for v in vals], device),
+            fp.to_device(FQ, [v[1] for v in vals], device),
+        ]
+    )
+
+
+def _np(arr):
+    return arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+
+def fq2_from_device(arr):
+    arr = _np(arr)
+    c0s = fp.from_device(FQ, arr[..., 0, :, :].reshape(P.NLIMBS, -1))
+    c1s = fp.from_device(FQ, arr[..., 1, :, :].reshape(P.NLIMBS, -1))
+    return list(zip(c0s, c1s))
+
+
+def fq6_to_device(vals, device=None):
+    return torch.stack([fq2_to_device([v[i] for v in vals], device) for i in range(3)])
+
+
+def fq12_to_device(vals, device=None):
+    return torch.stack([fq6_to_device([v[i] for v in vals], device) for i in range(2)])
+
+
+def fq12_from_device(arr):
+    arr = _np(arr)
+    out = []
+    for b in range(arr.shape[-1]):
+        el = tuple(
+            tuple(
+                (
+                    P.from_mont(P.limbs_to_int(arr[i, j, 0, :, b]), P.Q),
+                    P.from_mont(P.limbs_to_int(arr[i, j, 1, :, b]), P.Q),
+                )
+                for j in range(3)
+            )
+            for i in range(2)
+        )
+        out.append(el)
+    return out

@@ -1,0 +1,132 @@
+"""The port's pairing pipeline on CPU tensors: against the reference's literal
+G2Precomp vector, against the oracle copy, and — the slice as a whole —
+against the JAX package limb for limb.  Tolerance: none."""
+
+import random
+
+import jax
+import numpy as np
+import pytest
+
+from bn_tpu import ate as JATE
+from bn_tpu import curve as jcurve
+from bn_tpu import oracle as JO
+from bn_tpu_torch import ate, convert, curve
+from bn_tpu_torch import oracle as O
+from bn_tpu_torch import params as P
+from bn_tpu_torch.fields import fp
+from bn_tpu_torch.fields import tower as T
+from bn_tpu_torch.ops import build
+
+import vectors_g2_precomp as V
+from test_oracle import S1, S2
+
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def fixed_points():
+    return O.g1_mul(O.G1_ONE, S1), O.g2_mul(O.G2_ONE, S2)
+
+
+@pytest.fixture(scope="module")
+def precomputed():
+    """Coefficients of two lanes: the golden-vector point and another one."""
+    qa = O.g_to_affine(O.FQ2_OPS, O.g2_mul(O.G2_ONE, V.SCALAR))
+    qb = O.g_to_affine(O.FQ2_OPS, O.g2_mul(O.G2_ONE, 12345))
+    dq = (T.fq2_to_device([qa[0], qb[0]], CPU), T.fq2_to_device([qa[1], qb[1]], CPU))
+    return (qa, qb), ate.precompute(dq)
+
+
+def test_precompute_matches_reference_literals(precomputed):
+    (qa, _), coeffs = precomputed
+    assert (qa[0], qa[1]) == (V.Q_X, V.Q_Y)
+    assert tuple(coeffs.shape) == (102, 3, 2, 16, 2) and len(V.COEFFS) == 102
+    for k, want in enumerate(V.COEFFS):
+        got = tuple(T.fq2_from_device(coeffs[k, ci])[0] for ci in range(3))
+        assert got == want, f"coeff {k}"
+
+
+def test_precompute_matches_oracle_on_other_lane(precomputed):
+    (_, qb), coeffs = precomputed
+    expect = O.precompute_g2(qb)
+    for k in range(102):
+        got = tuple(T.fq2_from_device(coeffs[k, ci])[1] for ci in range(3))
+        assert got == tuple(expect[k]), f"coeff {k}"
+
+
+def test_miller_loop(fixed_points):
+    g1, g2 = fixed_points
+    pa = O.g_to_affine(O.FQ_OPS, g1)
+    qa = O.g_to_affine(O.FQ2_OPS, g2)
+    dq = (T.fq2_to_device([qa[0]], CPU), T.fq2_to_device([qa[1]], CPU))
+    dp = (fp.to_device(fp.FQ, [pa[0]], CPU), fp.to_device(fp.FQ, [pa[1]], CPU))
+    f = ate.miller_loop(ate.precompute(dq), dp)
+    assert T.fq12_from_device(f)[0] == O.miller_loop(O.precompute_g2(qa), pa)
+
+
+def test_miller_batch_then_final_exponentiation_is_pairing(fixed_points):
+    g1, g2 = fixed_points
+    dp = curve.to_device(curve.g1_spec(), [g1], CPU)
+    dq = curve.to_device(curve.g2_spec(), [g2], CPU)
+    f = ate.miller_batch(dp, dq)
+    assert T.fq12_from_device(T.final_exponentiation(f))[0] == O.pairing(g1, g2)
+
+
+@pytest.fixture(scope="module")
+def four_pairs(fixed_points):
+    """The golden-vector pair, a random pair, and the two degenerate pairs."""
+    g1, g2 = fixed_points
+    random.seed(77)
+    p2 = O.g1_mul(O.G1_ONE, random.randrange(P.R_SCALAR))
+    q2 = O.g2_mul(O.G2_ONE, random.randrange(P.R_SCALAR))
+    inf1, inf2 = O.g_zero(O.FQ_OPS), O.g_zero(O.FQ2_OPS)
+    return [g1, p2, inf1, g1], [g2, q2, q2, inf2]
+
+
+@pytest.fixture(scope="module")
+def four_pairs_out(four_pairs):
+    ps, qs = four_pairs
+    build.reset_counts()
+    out = ate.pairing_batch(curve.to_device(curve.g1_spec(), ps, CPU), curve.to_device(curve.g2_spec(), qs, CPU))
+    assert sum(build.COUNTS.values()) == 0  # CPU tensors launch nothing
+    return out
+
+
+def test_reduced_pairing_against_oracle(four_pairs, four_pairs_out):
+    ps, qs = four_pairs
+    assert T.fq12_from_device(four_pairs_out) == [O.pairing(p, q) for p, q in zip(ps, qs)]
+
+
+def test_infinity_lanes_give_gt_one(four_pairs_out):
+    got = T.fq12_from_device(four_pairs_out)
+    assert got[2] == O.FQ12_ONE and got[3] == O.FQ12_ONE
+    assert got[0] != O.FQ12_ONE and got[1] != O.FQ12_ONE
+
+
+def test_slice_equals_jax_package(four_pairs, four_pairs_out):
+    """The whole slice: the same four pairs through jax.jit(pairing_batch)
+    (same shapes as tests/test_pairing.py, so the compile cache is shared)
+    and through the port; all (2, 3, 2, 16, 4) limbs equal."""
+    ps, qs = four_pairs
+    jp = jcurve.to_device(jcurve.g1_spec(), ps)
+    jq = jcurve.to_device(jcurve.g2_spec(), qs)
+    want = np.asarray(jax.jit(JATE.pairing_batch)(jp, jq))
+    # the port's inputs are the JAX arrays themselves, carried across
+    tp = convert.from_jax(tuple(np.asarray(x) for x in jp), device=CPU)
+    tq = convert.from_jax(tuple(np.asarray(x) for x in jq), device=CPU)
+    got = convert.to_numpy(ate.pairing_batch(tp, tq))
+    assert want.shape == (2, 3, 2, 16, 4) and got.shape == want.shape
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, convert.to_numpy(four_pairs_out))
+    assert JO.pairing(ps[0], qs[0]) == T.fq12_from_device(four_pairs_out)[0]
+
+
+def test_bilinearity():
+    random.seed(99)
+    s, kp, kq = (random.randrange(P.R_SCALAR) for _ in range(3))
+    p, q = O.g1_mul(O.G1_ONE, kp), O.g2_mul(O.G2_ONE, kq)
+    dp = curve.to_device(curve.g1_spec(), [O.g1_mul(p, s), p], CPU)
+    dq = curve.to_device(curve.g2_spec(), [q, O.g2_mul(q, s)], CPU)
+    out = T.fq12_from_device(ate.pairing_batch(dp, dq))
+    assert out[0] == out[1] == O.fq12_pow(O.pairing(p, q), s)

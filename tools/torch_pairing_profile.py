@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where one `pairing_batch` of the port spends its time on the card.
+
+Makes B (default 8192) input pairs on the card, runs `pairing_batch` once to
+warm up, then once under torch.profiler, and prints one JSON line: wall time
+of the profiled call, the device-busy time (sum of all kernel times), the
+idle share, and time and count by kernel name for this package's kernels and
+for PyTorch's own kernels around them (stack, where, copy).  If the profiler shows
+no device time, it says so instead of printing zeros as if measured.  Before
+that it prints one JSON line with the time and the launches of each stage of
+the pipeline run on its own (host clock around a synchronise).
+Run from the repository root:  python3 tools/torch_pairing_profile.py [B]
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from bn_tpu_torch import ate, curve  # noqa: E402
+from bn_tpu_torch import params as P  # noqa: E402
+from bn_tpu_torch.fields import fp, tower  # noqa: E402
+from bn_tpu_torch.ops import build  # noqa: E402
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    B = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    rng = np.random.default_rng(42)
+    k1 = fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
+    k2 = fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
+    g1s, g2s = curve.g1_spec(), curve.g2_spec()
+    p = curve.mul(g1s, curve.one(g1s, (B,)), k1)
+    q = curve.mul(g2s, curve.one(g2s, (B,)), k2)
+    ate.pairing_batch(p, q)
+    torch.cuda.synchronize()
+
+    def stage(fn):
+        build.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"ms": (time.perf_counter() - t0) * 1e3, "launches": sum(build.COUNTS.values())}
+
+    stages = {}
+    pa, stages["to_affine_g1"] = stage(lambda: curve.to_affine(g1s, p))
+    qa, stages["to_affine_g2"] = stage(lambda: curve.to_affine(g2s, q))
+    coeffs, stages["precompute"] = stage(lambda: ate.precompute(qa))
+    f, stages["miller_loop"] = stage(lambda: ate.miller_loop(coeffs, pa))
+    _, stages["final_exponentiation"] = stage(lambda: tower.final_exponentiation(f))
+    print(json.dumps({"batch": B, "card": card, "stages": stages}), flush=True)
+
+    t0 = time.perf_counter()
+    ate.pairing_batch(p, q)
+    torch.cuda.synchronize()
+    wall_plain_ms = (time.perf_counter() - t0) * 1e3
+
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ate.pairing_batch(p, q)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # kernel rows only: the rows of the host ops that started them (aten::cat,
+    # ...) carry the same device time a second time
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms == 0:
+        print(json.dumps({"batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms,
+                          "device_time": "not measured: the profiler recorded no device time"}))
+        return
+    print(json.dumps({
+        "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms, "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share_of_unprofiled_wall": 1 - busy_ms / wall_plain_ms,
+        "by_kernel": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in rows[:25]],
+    }))
+
+
+if __name__ == "__main__":
+    main()
