@@ -22,68 +22,28 @@ import torch
 from . import curve
 from . import oracle as O
 from . import params as P
-from .fields import fp, tower
-
-FQ = fp.FQ
+from .fields import tower
+from .ops import backend
+from .ops import tower_cuda as tc
 
 
 @functools.lru_cache(maxsize=None)
 def _consts(device_str: str):
-    """two_inv, twist_b and the twist-Frobenius coefficients on one device."""
+    """The twist-Frobenius coefficients on one device."""
     dev = torch.device(device_str)
     mulq_x, mulq_y = O.twist_frob_coeffs()
-    host = {
-        "two_inv": tower._fq_const(P.TWO_INV),
-        "twist_b": tower._fq2_const(O.twist_b()),
-        "mulq_x": tower._fq2_const(mulq_x),
-        "mulq_y": tower._fq2_const(mulq_y),
-    }
+    host = {"mulq_x": tower._fq2_const(mulq_x), "mulq_y": tower._fq2_const(mulq_y)}
     return {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in host.items()}
 
 
-def _scale_two_inv(a):
-    return fp.mul(FQ, a, _consts(str(a.device))["two_inv"])
-
-
 def _doubling_step(r):
-    """(src/groups/mod.rs:612-634)"""
-    x, y, z = r
-    t = tower
-    yz = t.add(y, z)
-    xy, b, c, j, yz_sq = t.fq2_mul(torch.stack([x, y, z, x, yz]), torch.stack([y, y, z, x, yz]))
-    d = fp.mul_small(FQ, c, 3)
-    e = t.fq2_mul(d, _consts(str(d.device))["twist_b"])
-    f = fp.mul_small(FQ, e, 3)
-    a, g = _scale_two_inv(torch.stack([xy, t.add(b, f)]))
-    h = t.sub(yz_sq, t.add(b, c))
-    g_sq, e_sq, nx, nz = t.fq2_mul(torch.stack([g, e, a, b]), torch.stack([g, e, t.sub(b, f), h]))
-    ny = t.sub(g_sq, fp.mul_small(FQ, e_sq, 3))
-    ell_0 = t.fq2_mul_by_xi(t.sub(e, b))
-    ell_vw = t.neg(h)
-    ell_vv = fp.mul_small(FQ, j, 3)
-    return (nx, ny, nz), torch.stack([ell_0, ell_vw, ell_vv])
+    """(src/groups/mod.rs:612-634) as a few dozen Fq2-sized kernel calls."""
+    return tc.g2_double_step(tower._F, r, *tc.step_consts(str(r[0].device)))
 
 
 def _mixed_addition_step(r, base):
-    """(src/groups/mod.rs:591-610)"""
-    x, y, z = r
-    bx, by = base
-    t = tower
-    p = t.fq2_mul(torch.stack([z, z]), torch.stack([bx, by]))
-    d = t.sub(x, p[0])
-    e = t.sub(y, p[1])
-    de = torch.stack([d, e])
-    f, g = t.fq2_mul(de, de)
-    h, i, zg = t.fq2_mul(torch.stack([d, x, z]), torch.stack([f, f, g]))
-    j = t.sub(t.add(zg, h), t.add(i, i))
-    nx, ny_a, hy, nz, ebx, dby = t.fq2_mul(
-        torch.stack([d, e, h, z, e, d]), torch.stack([j, t.sub(i, j), y, h, bx, by])
-    )
-    ny = t.sub(ny_a, hy)
-    ell_0 = t.fq2_mul_by_xi(t.sub(ebx, dby))
-    ell_vv = t.neg(e)
-    ell_vw = d
-    return (nx, ny, nz), torch.stack([ell_0, ell_vw, ell_vv])
+    """(src/groups/mod.rs:591-610) as a few dozen Fq2-sized kernel calls."""
+    return tc.g2_madd_step(tower._F, r, base)
 
 
 def _mul_by_q(a):
@@ -112,12 +72,40 @@ def _ladder_inputs(q_affine):
     return flags, base_idx, bases
 
 
+def _precompute_fused(q_affine):
+    """The ladder with one `double_step` / `madd_step` kernel per step.  The
+    result tensor is allocated once and each step writes its own slice; the
+    running point goes back and forth between two buffers; the three base
+    points are stacked once."""
+    flags, base_idx, bases = _ladder_inputs(q_affine)
+    bx, by = q_affine
+    lead = bx.dim() - 3
+    batch_shape = tuple(bx.shape[:-3]) + (bx.shape[-1],)
+    r = torch.stack([bx, by, tower.ones2(batch_shape, bx.device)], dim=-4)  # (*lead, 3, 2, L, B)
+    bases = [torch.stack(b, dim=-4) for b in bases]  # (*lead, 2, 2, L, B) each
+    coeffs = torch.empty((len(flags),) + tuple(r.shape), dtype=r.dtype, device=r.device)
+    spare = torch.empty_like(r)
+    for k, (is_add, idx) in enumerate(zip(flags, base_idx)):
+        if is_add:
+            tc.madd_step(r, bases[idx], r_out=spare, coeffs_out=coeffs[k])
+        else:
+            tc.double_step(r, r_out=spare, coeffs_out=coeffs[k])
+        r, spare = spare, r
+    # the steps keep leading batch axes in front of the (3, 2) struct; the
+    # result has them behind the coefficient axis, as the unfused ladder does
+    return coeffs.movedim(lead + 1, 1) if lead else coeffs
+
+
 def precompute(q_affine):
     """Line-coefficient precompute over a batch of affine G2 points.
 
     Returns a (102, 3, 2, L, B) tensor of EllCoeffs in ladder order
-    (src/groups/mod.rs:557-588; count invariant asserted at :761).
+    (src/groups/mod.rs:557-588; count invariant asserted at :761).  With the
+    `ladder` switch of ops/backend.py on (the default) every step is one
+    kernel; otherwise a few dozen Fq2-sized ones.  Same limbs either way.
     """
+    if backend.ladder:
+        return _precompute_fused(q_affine)
     flags, base_idx, bases = _ladder_inputs(q_affine)
     bx, by = q_affine
     batch_shape = tuple(bx.shape[:-3]) + (bx.shape[-1],)

@@ -189,3 +189,56 @@ static BN_DEV_NOINLINE Fq fq_mont_mul_call(Fq a, Fq b, Mod m) {
 #else
 #define fq_mont_mul fq_mont_mul_inline
 #endif
+
+// ---- fixed-exponent power ---------------------------------------------------
+
+// An exponent below 2^256 as eight 32-bit words, little endian, and the count
+// nd >= 1 of its base-16 digits (leading zero digits stripped).  It is the
+// same for every thread, so it travels as a kernel argument.
+struct Exp {
+  uint32_t w[BN_NW];
+  int nd;
+};
+
+// Base-16 digit k of e (k = 0 is the least significant).
+BN_DEV uint32_t exp_digit(const Exp& e, int k) { return (e.w[k >> 3] >> (4 * (k & 7))) & 15u; }
+
+// The window table a^0..a^15 of one element lives in scratch memory the caller
+// provides: word j of entry k at tab[(k*BN_NW + j)*stride].  A kernel passes
+// shared memory offset by its thread index with stride = block size (so the
+// threads of a warp touch neighbouring banks); the host passes a plain array
+// with stride 1.
+BN_DEV void fq_tab_store(uint32_t* tab, int stride, int k, const Fq& v) {
+#pragma unroll
+  for (int j = 0; j < BN_NW; j++) tab[(k * BN_NW + j) * stride] = v.w[j];
+}
+
+BN_DEV Fq fq_tab_load(const uint32_t* tab, int stride, int k) {
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < BN_NW; j++) r.w[j] = tab[(k * BN_NW + j) * stride];
+  return r;
+}
+
+// a^e in the Montgomery domain by a window-4 ladder: the table once, then for
+// each further digit four squarings and one product with table[digit].  `one`
+// is the Montgomery one R mod m, an exact identity of the product, so a zero
+// digit needs no branch; the leading digit is never zero, so 0^e = 0.
+// The order of products is that of fields/fp.py's loop of mont_mul launches.
+BN_DEV Fq fq_pow_fixed(const Fq& a, const Fq& one, const Exp& e, uint32_t* tab, int stride, const Mod& m) {
+  Fq t = one;
+  fq_tab_store(tab, stride, 0, t);
+#pragma unroll 1
+  for (int k = 1; k < 16; k++) {
+    t = fq_mont_mul(t, a, m);
+    fq_tab_store(tab, stride, k, t);
+  }
+  Fq res = fq_tab_load(tab, stride, exp_digit(e, e.nd - 1));
+#pragma unroll 1
+  for (int k = e.nd - 2; k >= 0; k--) {
+#pragma unroll 1
+    for (int s = 0; s < 4; s++) res = fq_mont_mul(res, res, m);
+    res = fq_mont_mul(res, fq_tab_load(tab, stride, exp_digit(e, k)), m);
+  }
+  return res;
+}

@@ -79,6 +79,24 @@ BN_DEV Fq2 fq2_sub(const Fq2& a, const Fq2& b, const Mod& m) {
 
 BN_DEV Fq2 fq2_dbl(const Fq2& a, const Mod& m) { return fq2_add(a, a, m); }
 
+BN_DEV Fq2 fq2_neg(const Fq2& a, const Mod& m) {
+  Fq2 r;
+  r.c0 = fq_neg(a.c0, m);
+  r.c1 = fq_neg(a.c1, m);
+  return r;
+}
+
+// 3a as 2a + a.
+BN_DEV Fq2 fq2_mul3(const Fq2& a, const Mod& m) { return fq2_add(fq2_dbl(a, m), a, m); }
+
+// Both coefficients times a base-field element, 2 products.
+BN_DEV Fq2 fq2_scale_fq(const Fq2& a, const Fq& k, const Mod& m) {
+  Fq2 r;
+  r.c0 = fq_mont_mul(a.c0, k, m);
+  r.c1 = fq_mont_mul(a.c1, k, m);
+  return r;
+}
+
 // Karatsuba product, 3 base-field products (src/fields/fq2.rs:139-155).
 BN_DEV Fq2 fq2_mul(const Fq2& a, const Fq2& b, const Mod& m) {
   Fq aa = fq_mont_mul(a.c0, b.c0, m);
@@ -267,4 +285,77 @@ BN_DEV Fq12 fq12_cyclo_sq(const Fq12& a, const Mod& m) {
   r.c1.c1 = fq2_m3_add(t1, z1, m);  // nz1
   r.c1.c2 = fq2_m3_add(t3, z5, m);  // nz5
   return r;
+}
+
+// ---- steps of the G2 line-coefficient precompute ----------------------------
+
+// A point of the twist in the ladder's projective coordinates, and the three
+// coefficients of the line a step emits.  In memory both are (3, 2) structs in
+// front of (16, B): Fq2 number k starts at p + 2*k*16*stride.
+struct G2Proj {
+  Fq2 x, y, z;
+};
+struct EllCoeffs {
+  Fq2 ell_0, ell_vw, ell_vv;
+};
+
+BN_DEV G2Proj g2_load(const int32_t* p, int64_t stride) {
+  G2Proj r;
+  r.x = fq2_load(p, stride);
+  r.y = fq2_load(p + 2 * BN_NLIMB * stride, stride);
+  r.z = fq2_load(p + 4 * BN_NLIMB * stride, stride);
+  return r;
+}
+
+BN_DEV void g2_store(int32_t* p, int64_t stride, const G2Proj& r) {
+  fq2_store(p, stride, r.x);
+  fq2_store(p + 2 * BN_NLIMB * stride, stride, r.y);
+  fq2_store(p + 4 * BN_NLIMB * stride, stride, r.z);
+}
+
+BN_DEV void ell_store(int32_t* p, int64_t stride, const EllCoeffs& c) {
+  fq2_store(p, stride, c.ell_0);
+  fq2_store(p + 2 * BN_NLIMB * stride, stride, c.ell_vw);
+  fq2_store(p + 4 * BN_NLIMB * stride, stride, c.ell_vv);
+}
+
+// Doubling step on the running point (src/groups/mod.rs:612-634): r <- 2r and
+// the tangent line's coefficients, 28 base-field products.  two_inv is 1/2 and
+// twist_b the twist's curve constant, both in Montgomery form from the host.
+BN_DEV void g2_double_step(G2Proj& r, EllCoeffs& c, const Fq& two_inv, const Fq2& twist_b, const Mod& m) {
+  Fq2 a = fq2_scale_fq(fq2_mul(r.x, r.y, m), two_inv, m);
+  Fq2 b = fq2_sq(r.y, m);
+  Fq2 cc = fq2_sq(r.z, m);
+  Fq2 e = fq2_mul(fq2_mul3(cc, m), twist_b, m);
+  Fq2 f = fq2_mul3(e, m);
+  Fq2 g = fq2_scale_fq(fq2_add(b, f, m), two_inv, m);
+  Fq2 h = fq2_sub(fq2_sq(fq2_add(r.y, r.z, m), m), fq2_add(b, cc, m), m);
+  Fq2 j = fq2_sq(r.x, m);
+  Fq2 e_sq = fq2_sq(e, m);
+  r.x = fq2_mul(a, fq2_sub(b, f, m), m);
+  r.y = fq2_sub(fq2_sq(g, m), fq2_mul3(e_sq, m), m);
+  r.z = fq2_mul(b, h, m);
+  c.ell_0 = fq2_xi(fq2_sub(e, b, m), m);
+  c.ell_vw = fq2_neg(h, m);
+  c.ell_vv = fq2_mul3(j, m);
+}
+
+// Mixed-addition step with the affine base point (bx, by)
+// (src/groups/mod.rs:591-610): r <- r + base and the chord's coefficients, 37
+// base-field products.  Note ell_vw / ell_vv: here (d, -e), above (-h, 3j).
+BN_DEV void g2_madd_step(G2Proj& r, EllCoeffs& c, const Fq2& bx, const Fq2& by, const Mod& m) {
+  Fq2 d = fq2_sub(r.x, fq2_mul(r.z, bx, m), m);
+  Fq2 e = fq2_sub(r.y, fq2_mul(r.z, by, m), m);
+  Fq2 f = fq2_sq(d, m);
+  Fq2 g = fq2_sq(e, m);
+  Fq2 h = fq2_mul(d, f, m);
+  Fq2 i = fq2_mul(r.x, f, m);
+  Fq2 j = fq2_sub(fq2_add(fq2_mul(r.z, g, m), h, m), fq2_dbl(i, m), m);
+  Fq2 ny = fq2_sub(fq2_mul(e, fq2_sub(i, j, m), m), fq2_mul(h, r.y, m), m);
+  r.x = fq2_mul(d, j, m);
+  r.y = ny;
+  r.z = fq2_mul(r.z, h, m);
+  c.ell_0 = fq2_xi(fq2_sub(fq2_mul(e, bx, m), fq2_mul(d, by, m), m), m);
+  c.ell_vw = d;
+  c.ell_vv = fq2_neg(e, m);
 }

@@ -7,7 +7,8 @@ wrappers of ops/mont_cuda.py: kernels for tensors on the card, the plain
 versions for tensors on the CPU.
 
 Inversion is Fermat exponentiation a^(m-2) on a fixed window-4 schedule:
-branchless and fully parallel across the batch.
+branchless and fully parallel across the batch; one kernel on the card unless
+ops/backend.py says otherwise.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from .. import params as P
 from ..convert import default_device
+from ..ops import backend
 from ..ops import limbs as lb
 from ..ops import mont_cuda as mc
 
@@ -112,36 +114,19 @@ def mul_small(spec: FpSpec, a, k: int):
 # fixed-exponent powering and Fermat inversion
 # ---------------------------------------------------------------------------
 
-_WINDOW = 4
-
-
-@functools.lru_cache(maxsize=None)
-def _digit_schedule(e: int):
-    """Big-endian base-16 digits of e, leading zeros stripped."""
-    assert e > 0
-    nd = (e.bit_length() + _WINDOW - 1) // _WINDOW
-    return tuple((e >> (i * _WINDOW)) & (2**_WINDOW - 1) for i in range(nd - 1, -1, -1))
-
 
 def pow_fixed(spec: FpSpec, a, e: int):
-    """a^e (Montgomery domain) for a fixed exponent e.
-
-    Windowed square-and-multiply: res = res^16 * table[d].  The Montgomery
-    one is a true multiplicative identity under mont_mul, so the d = 0 slot
-    needs no special case.  The schedule is static, hence a Python loop."""
-    one = ones(spec, a.shape[:-2] + a.shape[-1:], device=a.device)
+    """a^e (Montgomery domain) for a fixed exponent e, by the window-4 ladder
+    of ops/mont_cuda.py.  With the `pow_fixed` switch of ops/backend.py on
+    (the default) an exponent of more than three digits goes to the one
+    `pow_fixed` kernel; otherwise the ladder is a Python loop of `mont_mul`
+    calls, about five launches a digit.  Same limbs either way."""
     if e == 0:
-        return one
-    table = [one]
-    for _ in range(2**_WINDOW - 1):
-        table.append(mul(spec, table[-1], a))
-    digits = _digit_schedule(e)
-    res = table[digits[0]]
-    for d in digits[1:]:
-        for _ in range(_WINDOW):
-            res = sqr(spec, res)
-        res = mul(spec, res, table[d])
-    return res
+        return ones(spec, a.shape[:-2] + a.shape[-1:], device=a.device)
+    if backend.pow_fixed and e.bit_length() > 3 * mc.WINDOW:
+        return mc.pow_fixed(a, e, spec.modulus)
+    one = spec.one_const(a.device).expand_as(a)
+    return mc.window_pow(lambda x, y: mul(spec, x, y), one, a, e)
 
 
 def inv(spec: FpSpec, a):

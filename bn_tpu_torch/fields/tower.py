@@ -7,9 +7,9 @@ axes lead, batch axis last):
     Fq6  : (..., 3, 2, L, B)   Fq6  = Fq2[v]/(v^3-xi), xi = 9+u
     Fq12 : (..., 2, 3, 2, L, B) Fq12 = Fq6[w]/(w^2-v)
 
-fq2_mul, fq2_sq, fq2_mul_by_xi, fq12_mul, fq12_sq, fq12_mul_by_024_prescaled
-and fq12_cyclotomic_sq are one kernel each on the card (ops/mont_cuda.py,
-ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
+fq2_mul, fq2_sq, fq2_mul_by_xi, fq12_mul, fq12_sq, fq12_mul_by_024_prescaled,
+fq12_cyclotomic_sq and a run of cyclotomic squarings are one kernel each on
+the card (ops/mont_cuda.py, ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
 their independent Fq2 products along a new leading axis and send them
 through one fq2_mul call.  Formulas mirror the reference crate
 (src/fields/fq2.rs, fq6.rs, fq12.rs), which pin the golden vectors;
@@ -26,6 +26,7 @@ import torch
 
 from .. import oracle as O
 from .. import params as P
+from ..ops import backend
 from ..ops import mont_cuda as mc
 from ..ops import tower_cuda as tc
 from . import fp
@@ -179,9 +180,11 @@ def fq2_inv(a):
 # Fq6   (reference: src/fields/fq6.rs)
 # ---------------------------------------------------------------------------
 
-# the field the shared Fq6 formulas of ops/tower_cuda.py run on here: the
-# dispatching wrappers
-_F = types.SimpleNamespace(add=add, sub=sub, fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi)
+# the field the shared formulas of ops/tower_cuda.py (Fq6 product, precompute
+# steps) run on here: the dispatching wrappers
+_F = types.SimpleNamespace(
+    add=add, sub=sub, neg=neg, mul=lambda a, b: fp.mul(FQ, a, b), fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi
+)
 
 
 def fq6_mul_by_nonresidue(a):
@@ -291,7 +294,11 @@ def _z_naf():
 
 
 def _cyclo_sq_run(res, n: int):
-    """n successive cyclotomic squarings, one kernel call each."""
+    """n successive cyclotomic squarings: one `fq12_cyclo_sq_chain` kernel for
+    a run of two or more with the `cyclo_chain` switch of ops/backend.py on
+    (the default), else one `fq12_cyclo_sq` call each."""
+    if backend.cyclo_chain and n >= 2:
+        return tc.fq12_cyclo_sq_chain(res, n, P.Q)
     for _ in range(n):
         res = fq12_cyclotomic_sq(res)
     return res

@@ -1,0 +1,48 @@
+"""Which of two kernel paths the pipeline takes where it has a fused kernel.
+
+Counterpart in role of the JAX package's ops/backend.py and of its three
+BN_TPU_POW_FUSED / BN_TPU_CYCLO_CHAIN / BN_TPU_FUSED_LADDER switches.  Three
+booleans, all on by default:
+
+  pow_fixed    fields/fp.py `pow_fixed` (the Fermat inversions) runs as one
+               `pow_fixed` kernel instead of a loop of `mont_mul` launches;
+  cyclo_chain  fields/tower.py `_cyclo_sq_run` runs a run of n >= 2
+               cyclotomic squarings as one `fq12_cyclo_sq_chain` kernel
+               instead of n `fq12_cyclo_sq` launches;
+  ladder       ate.py `precompute` runs each of its 102 steps as one
+               `double_step` / `madd_step` kernel instead of a few dozen
+               Fq2-sized launches.
+
+A switch chooses between two kernel paths that return the same limbs.  It
+never chooses a plain version: where a tensor lies decides that, and nothing
+else.  There is no environment variable; `fusions(...)` sets switches for a
+block and restores them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+pow_fixed = True
+cyclo_chain = True
+ladder = True
+
+NAMES = ("pow_fixed", "cyclo_chain", "ladder")
+
+
+@contextlib.contextmanager
+def fusions(**switches):
+    """Set the named switches (booleans) inside the block, e.g.
+    `with fusions(pow_fixed=False, cyclo_chain=False, ladder=False):` for the
+    unfused path.  An unknown name or a value that is not a bool raises."""
+    for name, on in switches.items():
+        if name not in NAMES:
+            raise ValueError(f"unknown fusion switch {name!r}: the switches are {NAMES}")
+        if not isinstance(on, bool):
+            raise TypeError(f"fusion switch {name} takes True or False, got {on!r}")
+    before = {name: globals()[name] for name in switches}
+    globals().update(switches)
+    try:
+        yield
+    finally:
+        globals().update(before)

@@ -52,6 +52,13 @@ ENTRIES = {
     "fq12_sq": ("kernel_fq12_sq", _UNARY),
     "fq12_mul024_pre": ("kernel_fq12_mul024_pre", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
     "fq12_cyclo_sq": ("kernel_fq12_cyclo_sq", _UNARY),
+    # exponent words (host), digit count, R mod m words (host)
+    "pow_fixed": ("kernel_pow_fixed", [_P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.c_int, ctypes.POINTER(_U32)] + _MODARGS),
+    "fq12_cyclo_sq_chain": ("kernel_fq12_cyclo_sq_chain", [_P, _P, _LL, _LL, ctypes.c_int] + _MODARGS),
+    # r, r_out, coeffs_out; 1/2 and the twist's b as Montgomery words (host)
+    "double_step": ("kernels_g2_step", [_P, _P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.POINTER(_U32)] + _MODARGS),
+    # r, base, r_out, coeffs_out
+    "madd_step": ("kernels_g2_step", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
     # not a kernel of the pairing: the multiply-add rate probe chip_smoke.py uses
     "imad_probe": ("kernels_fq", [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
 }
@@ -64,13 +71,16 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source extra flags.  The Fq12 kernels call the Montgomery product out of
-# line (see csrc/fq.cuh).
+# Per-source extra flags.  The Fq12 and the precompute-step kernels call the
+# Montgomery product out of line (see csrc/fq.cuh): tools/torch_kernel_variants.py
+# measures each 1.4 to 2 times faster that way than with 18 to 54 inlined copies.
 SOURCE_FLAGS = {
     "kernel_fq12_mul": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_sq": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_mul024_pre": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_cyclo_sq": ["-DBN_MUL_OUT_OF_LINE"],
+    "kernel_fq12_cyclo_sq_chain": ["-DBN_MUL_OUT_OF_LINE"],
+    "kernels_g2_step": ["-DBN_MUL_OUT_OF_LINE"],
 }
 
 

@@ -1,11 +1,12 @@
 """Base-field and Fq2 operations: CUDA kernels with their plain versions.
 
-Counterpart of the JAX package's ops/mont_pallas.py.  Seven functions —
-mont_mul, mod_add, mod_sub, mod_neg, fq2_mul, fq2_sq, fq2_xi — each with
+Counterpart of the JAX package's ops/mont_pallas.py.  Eight functions —
+mont_mul, mod_add, mod_sub, mod_neg, pow_fixed, fq2_mul, fq2_sq, fq2_xi —
+each with
 
  - a wrapper that dispatches on where its operand lies and on nothing else:
    a CPU tensor goes to the plain version, a CUDA tensor to the kernel in
-   csrc/kernels_fq.cu (or the call raises);
+   csrc/kernels_fq.cu or csrc/kernel_pow_fixed.cu (or the call raises);
  - `<name>_plain`, the same function in plain PyTorch on ops/limbs.py.
 
 Operands are int32 limb tensors (..., 16, B); the Fq2 functions take
@@ -57,31 +58,56 @@ def broadcast(*ts):
     return tuple(t.expand(shape) for t in ts)
 
 
-def launch(name: str, ins, structs, modulus: int):
+def _check_destination(name: str, dst, shape, ins):
+    """A caller-named output: dense int32 of the right shape on the operands'
+    device, and not one of the operands (the kernels read through
+    __restrict__ pointers)."""
+    if dst.dtype != torch.int32 or tuple(dst.shape) != tuple(shape) or dst.device != ins[0].device:
+        raise ValueError(f"{name}: destination {tuple(dst.shape)} {dst.dtype} on {dst.device}, expected {tuple(shape)} torch.int32 on {ins[0].device}")
+    if not dst.is_contiguous():
+        raise ValueError(f"{name}: a destination must be contiguous")
+    if any(dst.data_ptr() == t.data_ptr() for t in ins):
+        raise ValueError(f"{name}: a destination may not be one of the operands")
+    return dst
+
+
+def launch(name: str, ins, structs, modulus: int, extra=(), out_structs=None, outs=None):
     """Check the operands, allocate the output like ins[0] and start kernel
     `name`.  ins[k] has shape (*lead, *structs[k], 16, B) with one `lead`
-    for all; the kernel sees rows = prod(lead) elements of batch B.
+    for all; the kernel sees rows = prod(lead) elements of batch B.  `extra`
+    are the kernel's own arguments between B and the modulus.  A kernel with
+    several outputs names their structs in `out_structs` and gets a tuple
+    back; `outs` may then name a destination for each (None = allocate).
 
     A dense copy made here may be freed as soon as this returns, before the
     kernel has run: PyTorch's allocator hands the memory out again only to
     work queued later on the same stream, which is the stream of the launch."""
     B = ins[0].shape[-1]
-    lead = ins[0].shape[: ins[0].dim() - 2 - len(structs[0])]
+    lead = tuple(ins[0].shape[: ins[0].dim() - 2 - len(structs[0])])
     dense = []
     for t, st in zip(ins, structs):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: limb tensors are torch.int32, got {t.dtype}")
-        if tuple(t.shape) != tuple(lead) + tuple(st) + (P.NLIMBS, B):
-            raise ValueError(f"{name}: operand of shape {tuple(t.shape)}, expected {tuple(lead) + tuple(st) + (P.NLIMBS, B)}")
+        if tuple(t.shape) != lead + tuple(st) + (P.NLIMBS, B):
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)}, expected {lead + tuple(st) + (P.NLIMBS, B)}")
         dense.append(t.contiguous())
-    out = torch.empty_like(dense[0])
+    if out_structs is None:
+        results = [torch.empty_like(dense[0])]
+    else:
+        results = []
+        for dst, st in zip(outs or [None] * len(out_structs), out_structs):
+            shape = lead + tuple(st) + (P.NLIMBS, B)
+            if dst is None:
+                dst = torch.empty(shape, dtype=torch.int32, device=dense[0].device)
+            results.append(_check_destination(name, dst, shape, dense))
     rows = 1
     for d in lead:
         rows *= d
     if rows * B:
         words, inv32 = _mod_args(modulus)
-        build.launch(name, out.device, *(t.data_ptr() for t in dense), out.data_ptr(), rows, B, words, inv32)
-    return out
+        build.launch(name, results[0].device, *(t.data_ptr() for t in dense), *(t.data_ptr() for t in results),
+                     rows, B, *extra, words, inv32)
+    return results[0] if out_structs is None else tuple(results)
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +157,69 @@ def mod_neg(a, modulus: int):
     if not _on_card(a):
         return mod_neg_plain(a, modulus)
     return launch("mod_neg", (a,), ((),), modulus)
+
+
+# ---------------------------------------------------------------------------
+# fixed-exponent power
+# ---------------------------------------------------------------------------
+
+WINDOW = 4
+
+
+@functools.lru_cache(maxsize=None)
+def digit_schedule(e: int):
+    """Big-endian base-16 digits of e > 0, leading zeros stripped."""
+    if e <= 0:
+        raise ValueError(f"pow_fixed: the exponent must be positive, got {e}")
+    nd = (e.bit_length() + WINDOW - 1) // WINDOW
+    return tuple((e >> (i * WINDOW)) & (2**WINDOW - 1) for i in range(nd - 1, -1, -1))
+
+
+def window_pow(mul, one, a, e: int):
+    """a^e by the window-4 ladder on a product `mul` with identity `one`:
+    table[k] = a^k, then res = res^16 * table[d] for each further digit.  The
+    Montgomery one is an exact identity of the product, so a zero digit needs
+    no special case, and the leading digit is never zero, so 0^e = 0."""
+    table = [one]
+    for _ in range(2**WINDOW - 1):
+        table.append(mul(table[-1], a))
+    digits = digit_schedule(e)
+    res = table[digits[0]]
+    for d in digits[1:]:
+        for _ in range(WINDOW):
+            res = mul(res, res)
+        res = mul(res, table[d])
+    return res
+
+
+def _mont_one(modulus: int) -> int:
+    return P.R_MONT % modulus
+
+
+def pow_fixed_plain(a, e: int, modulus: int):
+    m = _m_limbs(modulus)
+    one = lb.const(P.int_to_limbs(_mont_one(modulus)), a.device).expand_as(a)
+    return window_pow(lambda x, y: lb.mont_mul(x, y, m), one, a, e)
+
+
+@functools.lru_cache(maxsize=None)
+def _pow_args(e: int, modulus: int):
+    """The kernel's own arguments: exponent words, digit count, R mod m."""
+    if e >= 1 << (P.WORD_BITS * P.NWORDS):
+        raise ValueError("pow_fixed: the exponent must be below 2^256")
+    return (
+        (ctypes.c_uint32 * P.NWORDS)(*P.int_to_words(e)),
+        len(digit_schedule(e)),
+        (ctypes.c_uint32 * P.NWORDS)(*P.int_to_words(_mont_one(modulus))),
+    )
+
+
+def pow_fixed(a, e: int, modulus: int):
+    """a^e in the Montgomery domain for a fixed exponent 0 < e < 2^256; one
+    launch whatever e.  Maps 0 to 0."""
+    if not _on_card(a):
+        return pow_fixed_plain(a, e, modulus)
+    return launch("pow_fixed", (a,), ((),), modulus, extra=_pow_args(e, modulus))
 
 
 # ---------------------------------------------------------------------------

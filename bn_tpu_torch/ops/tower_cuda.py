@@ -1,10 +1,14 @@
-"""Whole Fq12 operations: CUDA kernels with their plain versions.
+"""Whole Fq12 operations and whole precompute steps: CUDA kernels with their
+plain versions.
 
-Counterpart of the JAX package's ops/tower_pallas.py.  Four functions —
-fq12_mul, fq12_sq, fq12_mul024_pre, fq12_cyclo_sq — each with a wrapper that
-sends a CPU tensor to the plain version and a CUDA tensor to its kernel
-(csrc/kernel_fq12_*.cu), and `<name>_plain`, the same function in plain
-PyTorch.  An Fq12 tensor is (..., 2, 3, 2, 16, B) int32.
+Counterpart of the JAX package's ops/tower_pallas.py.  Seven functions —
+fq12_mul, fq12_sq, fq12_mul024_pre, fq12_cyclo_sq, fq12_cyclo_sq_chain,
+double_step, madd_step — each with a wrapper that sends a CPU tensor to the
+plain version and a CUDA tensor to its kernel (csrc/kernel_fq12_*.cu,
+csrc/kernels_g2_step.cu), and `<name>_plain`, the same function in plain
+PyTorch.  An Fq12 tensor is (..., 2, 3, 2, 16, B) int32; a point of the
+precompute ladder and a step's line coefficients are (..., 3, 2, 16, B), an
+affine base point (..., 2, 2, 16, B).
 
 The plain versions follow the JAX package's tensor-level formulas: the
 independent Fq2 products of a tower operation are stacked along a new leading
@@ -13,12 +17,16 @@ axis and go through one Montgomery product.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
+from .. import oracle as O
+from .. import params as P
 from . import limbs as lb
 from .mont_cuda import (
+    _check_destination,
     _m_limbs,
     _on_card,
     broadcast,
@@ -55,7 +63,12 @@ class PlainField:
         m = _m_limbs(modulus)
         self.add = lambda a, b: lb.mod_add(a, b, m)
         self.sub = lambda a, b: lb.mod_sub(a, b, m)
-        self.fq2_mul = lambda a, b: fq2_mul_plain(a, b, modulus)
+        self.neg = lambda a: lb.mod_neg(a, m)
+        self.mul = lambda a, b: lb.mont_mul(a, b, m)
+        # operands brought to one shape first, as the wrapper does: the plain
+        # product stacks along a new leading axis, which a constant of fewer
+        # axes would otherwise be aligned against
+        self.fq2_mul = lambda a, b: fq2_mul_plain(*broadcast(a, b), modulus)
         self.fq2_xi = lambda a: fq2_xi_plain(a, modulus)
 
 
@@ -209,3 +222,138 @@ def fq12_cyclo_sq(a, modulus: int):
     if not _on_card(a):
         return fq12_cyclo_sq_plain(a, modulus)
     return launch("fq12_cyclo_sq", (a,), (_FQ12,), modulus)
+
+
+# ---------------------------------------------------------------------------
+# fq12_cyclo_sq_chain
+# ---------------------------------------------------------------------------
+
+
+def fq12_cyclo_sq_chain_plain(a, n: int, modulus: int):
+    for _ in range(n):
+        a = fq12_cyclo_sq_plain(a, modulus)
+    return a
+
+
+def fq12_cyclo_sq_chain(a, n: int, modulus: int):
+    """a^(2^n) by n >= 1 cyclotomic squarings; one launch whatever n."""
+    if n < 1:
+        raise ValueError(f"fq12_cyclo_sq_chain: n must be at least 1, got {n}")
+    if not _on_card(a):
+        return fq12_cyclo_sq_chain_plain(a, n, modulus)
+    return launch("fq12_cyclo_sq_chain", (a,), (_FQ12,), modulus, extra=(n,))
+
+
+# ---------------------------------------------------------------------------
+# double_step, madd_step: the steps of the G2 line-coefficient precompute
+# ---------------------------------------------------------------------------
+
+_G2 = (3, 2)
+_BASE = (2, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_const_monts():
+    """1/2 and the two coefficients of the twist's b, as Montgomery-form ints
+    derived from params and the oracle."""
+    return tuple(P.to_mont(v % P.Q, P.Q) for v in (P.TWO_INV, *O.twist_b()))
+
+
+@functools.lru_cache(maxsize=None)
+def step_consts(device_str: str):
+    """(1/2 as (16, 1), the twist's b as (2, 16, 1)) limb tensors on a device."""
+    two_inv, b0, b1 = (lb.const(P.int_to_limbs(v), torch.device(device_str)) for v in _step_const_monts())
+    return two_inv, torch.stack([b0, b1])
+
+
+@functools.lru_cache(maxsize=None)
+def _step_const_args():
+    """The same two constants as the 32-bit words the kernel takes by value."""
+    two_inv, b0, b1 = (P.int_to_words(v) for v in _step_const_monts())
+    return (ctypes.c_uint32 * P.NWORDS)(*two_inv), (ctypes.c_uint32 * (2 * P.NWORDS))(*b0, *b1)
+
+
+def _mul3(F, a):
+    return F.add(F.add(a, a), a)
+
+
+def g2_double_step(F, r, two_inv, twist_b):
+    """The doubling step (src/groups/mod.rs:612-634) on the field namespace F:
+    r = (x, y, z) Fq2 tensors -> ((x', y', z'), coefficients (3, ..., 2, 16, B)).
+    Independent Fq2 products are stacked into one F.fq2_mul call."""
+    x, y, z = r
+    yz = F.add(y, z)
+    xy, b, c, j, yz_sq = F.fq2_mul(torch.stack([x, y, z, x, yz]), torch.stack([y, y, z, x, yz]))
+    e = F.fq2_mul(_mul3(F, c), twist_b)
+    f = _mul3(F, e)
+    a, g = F.mul(torch.stack([xy, F.add(b, f)]), two_inv)
+    h = F.sub(yz_sq, F.add(b, c))
+    g_sq, e_sq, nx, nz = F.fq2_mul(torch.stack([g, e, a, b]), torch.stack([g, e, F.sub(b, f), h]))
+    ny = F.sub(g_sq, _mul3(F, e_sq))
+    ell_0 = F.fq2_xi(F.sub(e, b))
+    return (nx, ny, nz), torch.stack([ell_0, F.neg(h), _mul3(F, j)])
+
+
+def g2_madd_step(F, r, base):
+    """The mixed-addition step (src/groups/mod.rs:591-610) on the field
+    namespace F, with the affine base point (bx, by).  Its ell_vw / ell_vv are
+    (d, -e) where the doubling step's are (-h, 3j)."""
+    x, y, z = r
+    bx, by = base
+    zbx, zby = F.fq2_mul(torch.stack([z, z]), torch.stack([bx, by]))
+    d = F.sub(x, zbx)
+    e = F.sub(y, zby)
+    de = torch.stack([d, e])
+    f, g = F.fq2_mul(de, de)
+    h, i, zg = F.fq2_mul(torch.stack([d, x, z]), torch.stack([f, f, g]))
+    j = F.sub(F.add(zg, h), F.add(i, i))
+    nx, ny_a, hy, nz, ebx, dby = F.fq2_mul(
+        torch.stack([d, e, h, z, e, d]), torch.stack([j, F.sub(i, j), y, h, bx, by])
+    )
+    ell_0 = F.fq2_xi(F.sub(ebx, dby))
+    return (nx, F.sub(ny_a, hy), nz), torch.stack([ell_0, d, F.neg(e)])
+
+
+def _emit(name, r_new, coeffs, r_out, coeffs_out, r):
+    """Hand a plain step's results out in the kernels' layout, through the
+    caller's destinations where it named them."""
+    results = []
+    for val, dst in ((torch.stack(r_new, dim=-4), r_out), (torch.movedim(coeffs, 0, -4), coeffs_out)):
+        if dst is None:
+            results.append(val.contiguous())
+        else:
+            results.append(_check_destination(name, dst, val.shape, (r,)).copy_(val))
+    return tuple(results)
+
+
+def double_step_plain(r, r_out=None, coeffs_out=None):
+    two_inv, twist_b = step_consts(str(r.device))
+    r_new, coeffs = g2_double_step(_plain_field(P.Q), tuple(_c6(r, i) for i in range(3)), two_inv, twist_b)
+    return _emit("double_step", r_new, coeffs, r_out, coeffs_out, r)
+
+
+def double_step(r, r_out=None, coeffs_out=None):
+    """One doubling step of the precompute ladder over Fq2: r (..., 3, 2, 16, B)
+    -> (2r, (ell_0, ell_vw, ell_vv)), both (..., 3, 2, 16, B).  `r_out` and
+    `coeffs_out` name where to write them (neither may be `r`); without them
+    the results are new tensors.  One launch."""
+    if not _on_card(r):
+        return double_step_plain(r, r_out, coeffs_out)
+    return launch("double_step", (r,), (_G2,), P.Q, extra=_step_const_args(),
+                  out_structs=(_G2, _G2), outs=(r_out, coeffs_out))
+
+
+def madd_step_plain(r, base, r_out=None, coeffs_out=None):
+    r_new, coeffs = g2_madd_step(
+        _plain_field(P.Q), tuple(_c6(r, i) for i in range(3)), (_c6(base, 0), _c6(base, 1))
+    )
+    return _emit("madd_step", r_new, coeffs, r_out, coeffs_out, r)
+
+
+def madd_step(r, base, r_out=None, coeffs_out=None):
+    """One mixed-addition step of the precompute ladder: r (..., 3, 2, 16, B)
+    plus the affine base (..., 2, 2, 16, B) -> (r + base, coefficients).
+    Destinations as for double_step.  One launch."""
+    if not _on_card(r, base):
+        return madd_step_plain(r, base, r_out, coeffs_out)
+    return launch("madd_step", (r, base), (_G2, _BASE), P.Q, out_structs=(_G2, _G2), outs=(r_out, coeffs_out))

@@ -4,7 +4,7 @@ plain PyTorch versions.
 bn_tpu_torch/csrc/fq.cuh and tower.cuh are plain C++ on uint32_t/uint64_t, so
 g++ builds them with tests/torch_csrc_host.cpp standing in for the kernels
 (same offsets, a loop instead of a grid).  This checks the formulas, the limb
-packing and the memory layout of all eleven kernels without a GPU; that the
+packing and the memory layout of all fifteen kernels without a GPU; that the
 kernels build and launch is what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
@@ -28,6 +28,7 @@ _ROOT = Path(__file__).resolve().parent.parent
 _OPS = [
     "mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi",
     "fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq",
+    "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -57,24 +58,33 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
-    lib.host_run.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
-                             ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32]
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.host_run.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_int, u32p, u32p, ctypes.c_uint32]
     lib.host_run.restype = ctypes.c_int
     return lib
 
 
-def _run_host(lib, name, ins, modulus):
+def _run_host(lib, name, ins, modulus, n=0, extra=(), two_outputs=False):
+    """Run operation `name` of the shim; `n` and `extra` (32-bit words) are
+    the kernel's own arguments.  Returns the output, or both of them."""
     B = ins[0].shape[-1]
     rows = ins[0].shape[0]
     arrs = [np.ascontiguousarray(x.astype(np.int32)) for x in ins]
-    out = np.empty_like(arrs[0])
+    out, out2 = np.empty_like(arrs[0]), np.empty_like(arrs[0])
     ptrs = [a.ctypes.data for a in arrs] + [None] * (3 - len(arrs))
     words, inv32 = mc._mod_args(modulus)
-    assert lib.host_run(_OPS.index(name), *ptrs, out.ctypes.data, rows, B, words, inv32) == 0
-    return out
+    extra_c = (ctypes.c_uint32 * max(len(extra), 1))(*extra)
+    rc = lib.host_run(_OPS.index(name), *ptrs, out.ctypes.data, out2.ctypes.data, rows, B, n, extra_c, words, inv32)
+    assert rc == 0
+    return (out, out2) if two_outputs else out
 
 
-@pytest.mark.parametrize("name", _OPS)
+def _tensors(ins):
+    return [torch.from_numpy(x.astype(np.int32)) for x in ins]
+
+
+@pytest.mark.parametrize("name", list(_SPEC))
 def test_header_formula_equals_plain(host_lib, name):
     plain, structs = _SPEC[name]
     moduli = (TP.Q, TP.R_SCALAR) if structs[0] == () else (TP.Q,)
@@ -82,8 +92,49 @@ def test_header_formula_equals_plain(host_lib, name):
         # lead 3, batch 5: neither a power of two, the ragged shape of a card run
         ins = [rand_field(100 + k, (3,) + st + (5,), modulus) for k, st in enumerate(structs)]
         got = _run_host(host_lib, name, ins, modulus)
-        want = plain(*[torch.from_numpy(x.astype(np.int32)) for x in ins], modulus)
+        want = plain(*_tensors(ins), modulus)
         assert np.array_equal(got, want.numpy()), (name, modulus)
+
+
+@pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
+@pytest.mark.parametrize("exponent", ["m-2", 0xA0B7F03], ids=["fermat", "interior-zero-digit"])
+def test_header_pow_fixed_equals_plain_and_python_pow(host_lib, modulus, exponent):
+    """fq_pow_fixed with its table in a plain array: the Fermat exponent and a
+    short one with a zero digit inside; lanes 0, 1, m-1 and the Montgomery one
+    lead each row (rand_field)."""
+    e = modulus - 2 if exponent == "m-2" else exponent
+    a = rand_field(300, (2, 5), modulus)
+    extra = TP.int_to_words(e) + TP.int_to_words(TP.R_MONT % modulus)
+    got = _run_host(host_lib, "pow_fixed", [a], modulus, n=len(mc.digit_schedule(e)), extra=extra)
+    want = mc.pow_fixed_plain(*_tensors([a]), e, modulus)
+    assert np.array_equal(got, want.numpy())
+    # Montgomery domain: the stored value v stands for v/R, the result for (v/R)^e
+    vals = [TP.from_mont(v, modulus) for v in TP.limbs_to_ints(a[0])]
+    assert vals[:3] == [0, TP.from_mont(1, modulus), TP.from_mont(modulus - 1, modulus)]
+    assert TP.limbs_to_ints(got[0]) == [TP.to_mont(pow(v, e, modulus), modulus) for v in vals]
+    assert TP.limbs_to_ints(got[0])[0] == 0  # 0 -> 0, the contract of fp.inv
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_header_cyclo_sq_chain_equals_plain(host_lib, n):
+    a = rand_field(310, (3, 2, 3, 2, 5))
+    got = _run_host(host_lib, "fq12_cyclo_sq_chain", [a], TP.Q, n=n)
+    assert np.array_equal(got, tc.fq12_cyclo_sq_chain_plain(*_tensors([a]), n, TP.Q).numpy())
+
+
+def test_header_double_step_equals_plain(host_lib):
+    r = rand_field(320, (3, 3, 2, 5))
+    two_inv, twist_b = tc._step_const_args()
+    got = _run_host(host_lib, "double_step", [r], TP.Q, extra=list(two_inv) + list(twist_b), two_outputs=True)
+    want = tc.double_step_plain(*_tensors([r]))
+    assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
+
+
+def test_header_madd_step_equals_plain(host_lib):
+    r, base = rand_field(330, (3, 3, 2, 5)), rand_field(331, (3, 2, 2, 5))
+    got = _run_host(host_lib, "madd_step", [r, base], TP.Q, two_outputs=True)
+    want = tc.madd_step_plain(*_tensors([r, base]))
+    assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
 
 
 def test_inv32_matches_header_convention():

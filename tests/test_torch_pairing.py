@@ -1,12 +1,14 @@
 """The port's pairing pipeline on CPU tensors: against the reference's literal
 G2Precomp vector, against the oracle copy, and — the slice as a whole —
-against the JAX package limb for limb.  Tolerance: none."""
+against the JAX package limb for limb, in both configurations of
+ops/backend.py (fused, the default, and unfused).  Tolerance: none."""
 
 import random
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from bn_tpu import ate as JATE
 from bn_tpu import curve as jcurve
@@ -16,12 +18,13 @@ from bn_tpu_torch import oracle as O
 from bn_tpu_torch import params as P
 from bn_tpu_torch.fields import fp
 from bn_tpu_torch.fields import tower as T
-from bn_tpu_torch.ops import build
+from bn_tpu_torch.ops import backend, build
 
 import vectors_g2_precomp as V
 from test_oracle import S1, S2
 
 CPU = "cpu"
+UNFUSED = dict(pow_fixed=False, cyclo_chain=False, ladder=False)
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +58,32 @@ def test_precompute_matches_oracle_on_other_lane(precomputed):
         assert got == tuple(expect[k]), f"coeff {k}"
 
 
+def test_precompute_fused_equals_unfused_whole_tensor(precomputed):
+    """Three lanes — the golden-vector point, another one, and what to_affine
+    makes of an infinite Q (a point the steps were never meant for, masked
+    later) — through both ladders: every limb of (102, 3, 2, 16, 3) equal."""
+    (qa, qb), coeffs = precomputed
+    g2s = curve.g2_spec()
+    pts = [(qa[0], qa[1], O.FQ2_ONE), (qb[0], qb[1], O.FQ2_ONE), O.g_zero(O.FQ2_OPS)]
+    dq = curve.to_affine(g2s, curve.to_device(g2s, pts, CPU))
+    build.reset_counts()
+    fused = ate.precompute(dq)
+    with backend.fusions(ladder=False):
+        unfused = ate.precompute(dq)
+    assert sum(build.COUNTS.values()) == 0  # CPU tensors launch nothing
+    assert tuple(fused.shape) == (102, 3, 2, 16, 3) and torch.equal(fused, unfused)
+    assert torch.equal(fused[..., :2], coeffs)
+
+
+def test_precompute_fused_keeps_leading_batch_axes_where_the_unfused_does():
+    qs = [O.g_to_affine(O.FQ2_OPS, O.g2_mul(O.G2_ONE, k)) for k in (3, 5, 7, 11)]
+    bx, by = (T.fq2_to_device([q[i] for q in qs], CPU).reshape(2, 16, 2, 2).permute(2, 0, 1, 3) for i in range(2))
+    fused = ate.precompute((bx, by))
+    with backend.fusions(ladder=False):
+        unfused = ate.precompute((bx, by))
+    assert tuple(fused.shape) == (102, 3, 2, 2, 16, 2) and torch.equal(fused, unfused)
+
+
 def test_miller_loop(fixed_points):
     g1, g2 = fixed_points
     pa = O.g_to_affine(O.FQ_OPS, g1)
@@ -86,10 +115,36 @@ def four_pairs(fixed_points):
 
 @pytest.fixture(scope="module")
 def four_pairs_out(four_pairs):
+    """pairing_batch as a caller gets it: every fusion on."""
     ps, qs = four_pairs
+    assert backend.pow_fixed and backend.cyclo_chain and backend.ladder
     build.reset_counts()
     out = ate.pairing_batch(curve.to_device(curve.g1_spec(), ps, CPU), curve.to_device(curve.g2_spec(), qs, CPU))
     assert sum(build.COUNTS.values()) == 0  # CPU tensors launch nothing
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_four_pairs(four_pairs):
+    """The same four pairs as JAX arrays and through jax.jit(pairing_batch):
+    the one pairing-sized JAX compile of the port's tests (same shapes as
+    tests/test_pairing.py, so the compile cache is shared)."""
+    ps, qs = four_pairs
+    jp = jcurve.to_device(jcurve.g1_spec(), ps)
+    jq = jcurve.to_device(jcurve.g2_spec(), qs)
+    return jp, jq, np.asarray(jax.jit(JATE.pairing_batch)(jp, jq))
+
+
+@pytest.fixture(scope="module")
+def four_pairs_out_unfused(jax_four_pairs):
+    """The unfused configuration, on the JAX arrays themselves carried across."""
+    jp, jq, _ = jax_four_pairs
+    tp = convert.from_jax(tuple(np.asarray(x) for x in jp), device=CPU)
+    tq = convert.from_jax(tuple(np.asarray(x) for x in jq), device=CPU)
+    build.reset_counts()
+    with backend.fusions(**UNFUSED):
+        out = ate.pairing_batch(tp, tq)
+    assert sum(build.COUNTS.values()) == 0
     return out
 
 
@@ -104,22 +159,23 @@ def test_infinity_lanes_give_gt_one(four_pairs_out):
     assert got[0] != O.FQ12_ONE and got[1] != O.FQ12_ONE
 
 
-def test_slice_equals_jax_package(four_pairs, four_pairs_out):
+def test_slice_equals_jax_package(four_pairs, four_pairs_out, four_pairs_out_unfused, jax_four_pairs):
     """The whole slice: the same four pairs through jax.jit(pairing_batch)
-    (same shapes as tests/test_pairing.py, so the compile cache is shared)
-    and through the port; all (2, 3, 2, 16, 4) limbs equal."""
+    and through the port in both configurations; all (2, 3, 2, 16, 4) limbs
+    equal."""
     ps, qs = four_pairs
-    jp = jcurve.to_device(jcurve.g1_spec(), ps)
-    jq = jcurve.to_device(jcurve.g2_spec(), qs)
-    want = np.asarray(jax.jit(JATE.pairing_batch)(jp, jq))
-    # the port's inputs are the JAX arrays themselves, carried across
-    tp = convert.from_jax(tuple(np.asarray(x) for x in jp), device=CPU)
-    tq = convert.from_jax(tuple(np.asarray(x) for x in jq), device=CPU)
-    got = convert.to_numpy(ate.pairing_batch(tp, tq))
-    assert want.shape == (2, 3, 2, 16, 4) and got.shape == want.shape
-    assert np.array_equal(got, want)
-    assert np.array_equal(got, convert.to_numpy(four_pairs_out))
+    want = jax_four_pairs[2]
+    fused = convert.to_numpy(four_pairs_out)
+    unfused = convert.to_numpy(four_pairs_out_unfused)
+    assert want.shape == (2, 3, 2, 16, 4) and fused.shape == want.shape
+    assert np.array_equal(fused, want)
+    assert np.array_equal(unfused, want)
     assert JO.pairing(ps[0], qs[0]) == T.fq12_from_device(four_pairs_out)[0]
+
+
+def test_unfused_pairing_against_oracle(four_pairs, four_pairs_out_unfused):
+    ps, qs = four_pairs
+    assert T.fq12_from_device(four_pairs_out_unfused) == [O.pairing(p, q) for p, q in zip(ps, qs)]
 
 
 def test_bilinearity():

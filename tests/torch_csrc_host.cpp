@@ -7,17 +7,30 @@
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
-  OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ
+  OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
+  OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP
 };
 
+static Fq words_fq(const uint32_t* w) {
+  Fq r;
+  for (int i = 0; i < BN_NW; i++) r.w[i] = w[i];
+  return r;
+}
+
+// out2 is the second output of the step kernels.  n and extra are a kernel's
+// own arguments: pow_fixed takes n = digit count and extra = exponent words
+// then the words of R mod m; the chain takes n = squarings; double_step takes
+// extra = the words of 1/2 then of the twist's b.
 extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_t* c, int32_t* o,
-                        long long rows, long long B, const uint32_t* mod, uint32_t inv) {
+                        int32_t* out2, long long rows, long long B, int n, const uint32_t* extra,
+                        const uint32_t* mod, uint32_t inv) {
   Mod m;
   for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
   m.inv = inv;
   for (int64_t t = 0; t < rows * B; t++) {
     int64_t row = t / B, bb = t % B;
     int64_t o1 = row * BN_NLIMB * B + bb, o2 = 2 * row * BN_NLIMB * B + bb,
+            o4 = 4 * row * BN_NLIMB * B + bb, o6 = 6 * row * BN_NLIMB * B + bb,
             o12 = 12 * row * BN_NLIMB * B + bb;
     switch (op) {
       case OP_MONT_MUL: fq_store(o + o1, B, fq_mont_mul_inline(fq_load(a + o1, B), fq_load(b + o1, B), m)); break;
@@ -35,6 +48,39 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
         fq12_store(o + o12, B,
                    fq12_mul_by_024(fq12_load(a + o12, B), fq2_load(b + o2, B),
                                    fq2_load(s + 2 * BN_NLIMB * B, B), fq2_load(s, B), m));
+        break;
+      }
+      case OP_POW_FIXED: {
+        Exp e;
+        for (int i = 0; i < BN_NW; i++) e.w[i] = extra[i];
+        e.nd = n;
+        uint32_t tab[16 * BN_NW];
+        fq_store(o + o1, B, fq_pow_fixed(fq_load(a + o1, B), words_fq(extra + BN_NW), e, tab, 1, m));
+        break;
+      }
+      case OP_FQ12_CYCLO_SQ_CHAIN: {
+        Fq12 v = fq12_load(a + o12, B);
+        for (int i = 0; i < n; i++) v = fq12_cyclo_sq(v, m);
+        fq12_store(o + o12, B, v);
+        break;
+      }
+      case OP_DOUBLE_STEP: {
+        G2Proj p = g2_load(a + o6, B);
+        EllCoeffs co;
+        Fq2 tb;
+        tb.c0 = words_fq(extra + BN_NW);
+        tb.c1 = words_fq(extra + 2 * BN_NW);
+        g2_double_step(p, co, words_fq(extra), tb, m);
+        g2_store(o + o6, B, p);
+        ell_store(out2 + o6, B, co);
+        break;
+      }
+      case OP_MADD_STEP: {
+        G2Proj p = g2_load(a + o6, B);
+        EllCoeffs co;
+        g2_madd_step(p, co, fq2_load(b + o4, B), fq2_load(b + o4 + 2 * BN_NLIMB * B, B), m);
+        g2_store(o + o6, B, p);
+        ell_store(out2 + o6, B, co);
         break;
       }
       default: return 1;

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Compare two builds of the port's Fq12 kernels on the card: the Montgomery
-product called out of line (the default, -DBN_MUL_OUT_OF_LINE) against the
-same product inlined at each of its 18 to 54 uses.
+"""Compare two builds of the port's Fq12-sized and step kernels on the card:
+the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE) against the
+same product inlined at each of its 18 to 54 uses.  ops/build.py's
+SOURCE_FLAGS holds the choice made from these numbers.
 
-For each of the four kernel sources and each variant it prints one JSON line:
+For each of the seven kernels and each variant it prints one JSON line:
 nvcc's build time, what `ptxas -v` reports for the entry (registers, stack,
 spills), the kernel's time at B = 8192 (CUDA events, 50 launches after a
 warm-up, variants in turns: call, inline, inline, call), and whether the two
@@ -27,14 +28,18 @@ import torch  # noqa: E402
 from bn_tpu_torch import params as P  # noqa: E402
 from bn_tpu_torch.ops import build  # noqa: E402
 from bn_tpu_torch.ops import mont_cuda as mc  # noqa: E402
+from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
 B = 8192
 VARIANTS = {"call": ["-DBN_MUL_OUT_OF_LINE"], "inline": []}
-KERNELS = {  # entry -> operand structs
-    "fq12_mul": [(2, 3, 2), (2, 3, 2)],
-    "fq12_sq": [(2, 3, 2)],
-    "fq12_mul024_pre": [(2, 3, 2), (2,), (2, 2)],
-    "fq12_cyclo_sq": [(2, 3, 2)],
+KERNELS = {  # entry -> (operand structs, number of outputs shaped like the first operand, own arguments)
+    "fq12_mul": ([(2, 3, 2), (2, 3, 2)], 1, ()),
+    "fq12_sq": ([(2, 3, 2)], 1, ()),
+    "fq12_mul024_pre": ([(2, 3, 2), (2,), (2, 2)], 1, ()),
+    "fq12_cyclo_sq": ([(2, 3, 2)], 1, ()),
+    "fq12_cyclo_sq_chain": ([(2, 3, 2)], 1, (5,)),  # the longest run of the main path
+    "double_step": ([(3, 2)], 2, tc._step_const_args()),
+    "madd_step": ([(3, 2), (2, 2)], 2, ()),
 }
 
 
@@ -46,12 +51,13 @@ def main():
                           check=True, capture_output=True, text=True).stdout.strip()
     out_dir = build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    # start all eight compiles at once, then wait; time each by its own clock
+    # start every compile at once (one per source and variant), then wait;
+    # time each by its own clock
     procs = {}
-    for name in KERNELS:
+    for stem in sorted({build.ENTRIES[name][0] for name in KERNELS}):
         for var, flags in VARIANTS.items():
-            so = out_dir / f"lib{name}.{var}.so"
-            procs[name, var] = (build.compile_start(build.ENTRIES[name][0], so, flags), so, time.perf_counter())
+            so = out_dir / f"lib{stem}.{var}.so"
+            procs[stem, var] = (build.compile_start(stem, so, flags), so, time.perf_counter())
     libs, logs, secs = {}, {}, {}
     for key, (proc, so, t0) in procs.items():
         logs[key], _ = proc.communicate()
@@ -67,7 +73,8 @@ def main():
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    for name, structs in KERNELS.items():
+    for name, (structs, n_out, own) in KERNELS.items():
+        stem = build.ENTRIES[name][0]
         ins = []
         for st in structs:
             idx = torch.from_numpy(rng.integers(0, B, size=tuple(st) + (B,))).to(dev)
@@ -75,11 +82,11 @@ def main():
         outs, ms = {}, {v: [] for v in VARIANTS}
 
         def run(var):
-            fn = getattr(libs[name, var], f"bn_{name}")
+            fn = getattr(libs[stem, var], f"bn_{name}")
             fn.argtypes = list(build.ENTRIES[name][1]) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            o = torch.empty_like(ins[0])
-            args = [t.data_ptr() for t in ins] + [o.data_ptr(), 1, B, words, inv32, stream]
+            o = torch.stack([torch.empty_like(ins[0]) for _ in range(n_out)])
+            args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, B, *own, words, inv32, stream]
             assert fn(*args) == 0
             torch.cuda.synchronize()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -94,11 +101,11 @@ def main():
         for var in ("call", "inline", "inline", "call"):
             run(var)
         for var in VARIANTS:
-            log = logs[name, var]
+            log = logs[stem, var]  # of the whole source: every entry in it
             regs = re.findall(r"Used (\d+) registers", log)
             spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
             print(json.dumps({
-                "kernel": name, "variant": var, "ms": ms[var], "nvcc_s_upper_bound": round(secs[name, var], 1),
+                "kernel": name, "variant": var, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
                 "registers": [int(r) for r in regs],
                 "stack_spillstore_spillload_bytes": [[int(x) for x in s] for s in spills],
                 "same_result": bool(torch.equal(outs["call"], outs["inline"])), "card": card,

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where one `pairing_batch` of the port spends its time on the card.
+"""Where one `pairing_batch` of the port spends its time on the card, for both
+configurations of ops/backend.py in one process: fused (the default) and
+unfused (every fusion off).
 
-Makes B (default 8192) input pairs on the card, runs `pairing_batch` once to
-warm up, then once under torch.profiler, and prints one JSON line: wall time
-of the profiled call, the device-busy time (sum of all kernel times), the
-idle share, and time and count by kernel name for this package's kernels and
+Makes B (default 8192) input pairs on the card and, per configuration, runs
+`pairing_batch` once to warm up, five times on the host's clock, then once
+under torch.profiler, and prints one JSON line: the unprofiled wall time (the
+five and their median), the wall time of the profiled call, the device-busy
+time (sum of all kernel times), the idle share of the median wall time, and time and count by kernel name for this package's kernels and
 for PyTorch's own kernels around them (stack, where, copy).  If the profiler shows
 no device time, it says so instead of printing zeros as if measured.  Before
 that it prints one JSON line with the time and the launches of each stage of
@@ -13,6 +16,7 @@ Run from the repository root:  python3 tools/torch_pairing_profile.py [B]
 """
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -22,11 +26,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from bn_tpu_torch import ate, curve  # noqa: E402
 from bn_tpu_torch import params as P  # noqa: E402
 from bn_tpu_torch.fields import fp, tower  # noqa: E402
-from bn_tpu_torch.ops import build  # noqa: E402
+from bn_tpu_torch.ops import backend, build  # noqa: E402
 
 
 def main():
@@ -41,6 +46,15 @@ def main():
     g1s, g2s = curve.g1_spec(), curve.g2_spec()
     p = curve.mul(g1s, curve.one(g1s, (B,)), k1)
     q = curve.mul(g2s, curve.one(g2s, (B,)), k2)
+    configurations = {"fused": {}, "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
+    for name, switches in configurations.items():
+        with backend.fusions(**switches):
+            profile_one(name, B, card, p, q)
+
+
+def profile_one(name, B, card, p, q):
+    """The `stages` line and the by-kernel line of the configuration in force."""
+    g1s, g2s = curve.g1_spec(), curve.g2_spec()
     ate.pairing_batch(p, q)
     torch.cuda.synchronize()
 
@@ -57,14 +71,17 @@ def main():
     coeffs, stages["precompute"] = stage(lambda: ate.precompute(qa))
     f, stages["miller_loop"] = stage(lambda: ate.miller_loop(coeffs, pa))
     _, stages["final_exponentiation"] = stage(lambda: tower.final_exponentiation(f))
-    print(json.dumps({"batch": B, "card": card, "stages": stages}), flush=True)
+    print(json.dumps({"configuration": name, "batch": B, "card": card, "stages": stages}), flush=True)
 
-    t0 = time.perf_counter()
-    ate.pairing_batch(p, q)
-    torch.cuda.synchronize()
-    wall_plain_ms = (time.perf_counter() - t0) * 1e3
-
-    from torch.profiler import ProfilerActivity, profile
+    walls = []  # one call's host clock swings by tens of ms: take the median of five
+    for _ in range(5):
+        build.reset_counts()
+        t0 = time.perf_counter()
+        ate.pairing_batch(p, q)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_plain_ms = statistics.median(walls)
+    launches = sum(build.COUNTS.values())
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -84,12 +101,13 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     if busy_ms == 0:
-        print(json.dumps({"batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms,
+        print(json.dumps({"configuration": name, "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms,
                           "device_time": "not measured: the profiler recorded no device time"}))
         return
     print(json.dumps({
-        "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms, "wall_ms_profiled": wall_ms,
+        "configuration": name, "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms, "wall_ms_unprofiled_runs": walls, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share_of_unprofiled_wall": 1 - busy_ms / wall_plain_ms,
+        "kernels_total": sum(n for _, _, n in rows), "launches_of_this_package": launches,
         "by_kernel": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in rows[:25]],
     }))
 
