@@ -6,8 +6,11 @@ has no shift operator on the CPU while int32 has `>>`, `&` and `*`.  The
 values are the same integers, so a comparison between the two packages is an
 exact integer compare on `to_numpy(...)`.
 
-Both functions map over tuples and lists, so points (x, y, z), affine pairs,
-line-coefficient tensors and constant tables convert in one call.
+`from_jax` and `to_numpy` map over tuples and lists, so points (x, y, z),
+affine pairs, line-coefficient tensors and constant tables convert in one
+call.  `object_from_jax` / `object_to_numpy` carry the state of an API object
+(Fr, G1, G2, Gt) across: its `.dev` is a limb array, or for a group element
+the tuple (x, y, z).
 """
 
 from __future__ import annotations
@@ -36,3 +39,16 @@ def to_numpy(t):
     if isinstance(t, (tuple, list)):
         return tuple(to_numpy(x) for x in t)
     return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def object_from_jax(cls, dev, device=None):
+    """The `.dev` of a JAX-side Fr / G1 / G2 / Gt (an array, or a tuple of
+    them; numpy or anything numpy reads) -> the port's object of class `cls`
+    on `device` (default: the card)."""
+    return cls(from_jax(dev, device))
+
+
+def object_to_numpy(obj):
+    """The port's Fr / G1 / G2 / Gt -> its `.dev` as numpy uint32 array(s),
+    which the JAX-side class of the same name takes (after `jnp.asarray`)."""
+    return to_numpy(obj.dev)

@@ -10,8 +10,10 @@ Every data-dependent branch of the reference — infinity passthrough, the
 add-equals-double case (src/groups/mod.rs:276-295), the scalar ladder's
 found_one skip (src/groups/mod.rs:250-270) — is a mask and a select.  The
 infinity convention (0, 1, 0) matches test_y_at_point_at_infinity
-(src/groups/mod.rs:825-832).  add and double are written per field
-operation, each of which is one kernel on the card.
+(src/groups/mod.rs:825-832).  add and double are one kernel each on the card
+(ops/curve_cuda.py) unless the `curve_kernels` switch of ops/backend.py is
+off; then the same two formulas run per field operation on the views below,
+each operation one kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 from . import oracle as O
 from . import params as P
 from .fields import fp, tower
+from .ops import backend
+from .ops import curve_cuda as cc
 from .ops import limbs as lb
 
 # ---------------------------------------------------------------------------
@@ -65,10 +69,6 @@ class FqView:
     @staticmethod
     def inv(a):
         return fp.inv(fp.FQ, a)
-
-    @staticmethod
-    def mul_small(a, k):
-        return fp.mul_small(fp.FQ, a, k)
 
     is_zero = staticmethod(lb.is_zero)
     eq = staticmethod(lb.eq)
@@ -113,21 +113,9 @@ class Fq2View:
         res = tower.fq2_mul(torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]))
         return list(res)
 
-    @staticmethod
-    def mul_small(a, k):
-        return fp.mul_small(fp.FQ, a, k)
-
-    @staticmethod
-    def is_zero(a):
-        return torch.all(a == 0, dim=-2).all(dim=-2)
-
-    @staticmethod
-    def eq(a, b):
-        return torch.all(a == b, dim=-2).all(dim=-2)
-
-    @staticmethod
-    def select(mask, a, b):
-        return torch.where(mask[..., None, None, :], a, b)
+    is_zero = staticmethod(cc.fq2_is_zero)
+    eq = staticmethod(cc.fq2_eq)
+    select = staticmethod(cc.fq2_select)
 
 
 # ---------------------------------------------------------------------------
@@ -191,63 +179,20 @@ def is_zero(spec: CurveSpec, p):
 
 
 def double(spec: CurveSpec, p):
-    """dbl-2009-l (src/groups/mod.rs:228-247).  Safe at infinity (z3 = 2yz = 0
-    keeps the point at infinity)."""
-    F = spec.field
-    x, y, z = p
-    a, b, yz = F.mul_many([(x, x), (y, y), (y, z)])
-    xb = F.add(x, b)
-    c, xb2 = F.mul_many([(b, b), (xb, xb)])
-    d = F.sub(F.sub(xb2, a), c)
-    d = F.add(d, d)
-    e = F.mul_small(a, 3)
-    f = F.sq(e)
-    x3 = F.sub(f, F.add(d, d))
-    eight_c = F.mul_small(c, 8)
-    ed = F.mul(e, F.sub(d, x3))
-    return (x3, F.sub(ed, eight_c), F.add(yz, yz))
+    """dbl-2009-l (src/groups/mod.rs:228-247), safe at infinity: one
+    `point_double` kernel, or the formula per field operation."""
+    if backend.curve_kernels:
+        return cc.point_double(spec.name, p)
+    return cc.jac_double(spec.field, p)
 
 
 def add(spec: CurveSpec, p, q):
     """2007-bl Jacobian add with branchless degenerate handling
-    (src/groups/mod.rs:272-312)."""
-    F = spec.field
-    x1, y1, z1 = p
-    x2, y2, z2 = q
-    p_inf = is_zero(spec, p)
-    q_inf = is_zero(spec, q)
-
-    z1s, z2s = F.mul_many([(z1, z1), (z2, z2)])
-    u1, u2, z1c, z2c = F.mul_many([(x1, z2s), (x2, z1s), (z1, z1s), (z2, z2s)])
-    s1, s2 = F.mul_many([(y1, z2c), (y2, z1c)])
-
-    do_double = F.eq(u1, u2) & F.eq(s1, s2)
-
-    h = F.sub(u2, u1)
-    ss = F.sub(s2, s1)
-    hh = F.add(h, h)
-    i = F.sq(hh)
-    j, v = F.mul_many([(h, i), (u1, i)])
-    r = F.add(ss, ss)
-    z12 = F.add(z1, z2)
-    s1j, rsq, zz = F.mul_many([(s1, j), (r, r), (z12, z12)])
-    x3 = F.sub(F.sub(rsq, j), F.add(v, v))
-    rv = F.mul(r, F.sub(v, x3))
-    y3 = F.sub(rv, F.add(s1j, s1j))
-    z3 = F.mul(F.sub(F.sub(zz, z1s), z2s), h)
-    # NB when same x and different y (p = -q): h = 0 -> z3 = 0, the point at
-    # infinity, automatically correct.
-
-    dx, dy, dz = double(spec, p)
-    x3 = F.select(do_double, dx, x3)
-    y3 = F.select(do_double, dy, y3)
-    z3 = F.select(do_double, dz, z3)
-
-    # infinity passthrough
-    x3 = F.select(q_inf, x1, F.select(p_inf, x2, x3))
-    y3 = F.select(q_inf, y1, F.select(p_inf, y2, y3))
-    z3 = F.select(q_inf, z1, F.select(p_inf, z2, z3))
-    return (x3, y3, z3)
+    (src/groups/mod.rs:272-312): one `point_add` kernel, or the formula per
+    field operation."""
+    if backend.curve_kernels:
+        return cc.point_add(spec.name, p, q)
+    return cc.jac_add(spec.field, p, q)
 
 
 def neg(spec: CurveSpec, p):

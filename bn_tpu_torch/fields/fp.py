@@ -98,18 +98,6 @@ def ones(spec: FpSpec, batch_shape, device=None) -> torch.Tensor:
     return spec.one_const(default_device(device)).expand(shape).clone()
 
 
-def mul_small(spec: FpSpec, a, k: int):
-    """Multiply by a small positive integer via double-and-add on mod ops
-    (the 3x / 8x / 9x constants of the curve and tower formulas)."""
-    assert k >= 1
-    res = a
-    for bit in P.bits_msb_first(k)[1:]:
-        res = double(spec, res)
-        if bit:
-            res = add(spec, res, a)
-    return res
-
-
 # ---------------------------------------------------------------------------
 # fixed-exponent powering and Fermat inversion
 # ---------------------------------------------------------------------------

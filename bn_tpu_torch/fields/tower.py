@@ -360,6 +360,18 @@ def final_exponentiation(f):
     return fq12_mul(u2, r2)
 
 
+def fq12_pow_fr(a, scalar_bits):
+    """a^e for 256 exponent bits (..., 256, B), MSB first, on a's device: a
+    branchless square-and-multiply ladder, one `fq12_sq` and one `fq12_mul`
+    kernel a bit (replaces the reference's FieldElement::pow,
+    src/fields/mod.rs:35-46)."""
+    res = ones12(a.shape[:-5] + a.shape[-1:], a.device)
+    for bit in torch.movedim(scalar_bits, -2, 0):
+        res = fq12_sq(res)
+        res = torch.where((bit != 0)[..., None, None, None, None, :], fq12_mul(res, a), res)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # host <-> device conversion for tower elements
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Which of two kernel paths the pipeline takes where it has a fused kernel.
 
 Counterpart in role of the JAX package's ops/backend.py and of its three
-BN_TPU_POW_FUSED / BN_TPU_CYCLO_CHAIN / BN_TPU_FUSED_LADDER switches.  Three
-booleans, all on by default:
+BN_TPU_POW_FUSED / BN_TPU_CYCLO_CHAIN / BN_TPU_FUSED_LADDER /
+BN_TPU_CURVE_KERNELS switches.  Four booleans, all on by default:
 
   pow_fixed    fields/fp.py `pow_fixed` (the Fermat inversions) runs as one
                `pow_fixed` kernel instead of a loop of `mont_mul` launches;
@@ -11,7 +11,10 @@ booleans, all on by default:
                instead of n `fq12_cyclo_sq` launches;
   ladder       ate.py `precompute` runs each of its 102 steps as one
                `double_step` / `madd_step` kernel instead of a few dozen
-               Fq2-sized launches.
+               Fq2-sized launches;
+  curve_kernels  curve.py `add` / `double` run as one `point_add` /
+               `point_double` kernel instead of the per-field-op group law
+               (about 70 and 30 launches).
 
 A switch chooses between two kernel paths that return the same limbs.  It
 never chooses a plain version: where a tensor lies decides that, and nothing
@@ -26,8 +29,9 @@ import contextlib
 pow_fixed = True
 cyclo_chain = True
 ladder = True
+curve_kernels = True
 
-NAMES = ("pow_fixed", "cyclo_chain", "ladder")
+NAMES = ("pow_fixed", "cyclo_chain", "ladder", "curve_kernels")
 
 
 @contextlib.contextmanager

@@ -10,6 +10,10 @@ at once, one nvcc process each, because a kernel file with a whole Fq12
 formula takes much longer than the small ones.  Libraries are keyed by a hash
 of every source and flag, so an edit rebuilds and a second process reuses.
 
+The host codec csrc/bn_host.cpp (bytes <-> Montgomery limbs, no device code)
+is built the same way with g++ by `build_host()`, under a key of its own: an
+edit of it rebuilds it alone, and nvcc never sees it.
+
 `launch(name, *args)` is the only place a kernel is started: it appends the
 current CUDA stream, calls the C entry, raises unless it returns 0
 (cudaGetLastError), and adds one to COUNTS[name].
@@ -59,6 +63,10 @@ ENTRIES = {
     "double_step": ("kernels_g2_step", [_P, _P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.POINTER(_U32)] + _MODARGS),
     # r, base, r_out, coeffs_out
     "madd_step": ("kernels_g2_step", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
+    # x1, y1, z1, x2, y2, z2, x3, y3, z3; the flag says G2 (coordinates over Fq2)
+    "point_add": ("kernels_curve", [_P] * 9 + [_LL, _LL, ctypes.c_int] + _MODARGS),
+    # x, y, z, x3, y3, z3
+    "point_double": ("kernels_curve", [_P] * 6 + [_LL, _LL, ctypes.c_int] + _MODARGS),
     # not a kernel of the pairing: the multiply-add rate probe chip_smoke.py uses
     "imad_probe": ("kernels_fq", [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
 }
@@ -71,7 +79,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source extra flags.  The Fq12 and the precompute-step kernels call the
+# Per-source extra flags.  The Fq12, the precompute-step and the curve kernels call the
 # Montgomery product out of line (see csrc/fq.cuh): tools/torch_kernel_variants.py
 # measures each 1.4 to 2 times faster that way than with 18 to 54 inlined copies.
 SOURCE_FLAGS = {
@@ -81,6 +89,7 @@ SOURCE_FLAGS = {
     "kernel_fq12_cyclo_sq": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_cyclo_sq_chain": ["-DBN_MUL_OUT_OF_LINE"],
     "kernels_g2_step": ["-DBN_MUL_OUT_OF_LINE"],
+    "kernels_curve": ["-DBN_MUL_OUT_OF_LINE"],
 }
 
 
@@ -183,3 +192,35 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel bn_{name} was not launched: cudaError {rc}")
     if name in COUNTS:
         COUNTS[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# the host codec: csrc/bn_host.cpp, g++
+# ---------------------------------------------------------------------------
+
+HOST_SOURCE = CSRC / "bn_host.cpp"
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+def host_lib_path() -> Path:
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(repr(HOST_FLAGS).encode())
+    return BUILD / f"libbn_host.{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile the host codec unless its library is there already, and return
+    the library's path.  A missing g++ or a failed compile raises."""
+    out = host_lib_path()
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host codec csrc/bn_host.cpp cannot be built")
+    BUILD.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run([gxx] + HOST_FLAGS + ["-o", str(tmp), str(HOST_SOURCE)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {HOST_SOURCE.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -97,9 +97,10 @@ def launch(name: str, ins, structs, modulus: int, extra=(), out_structs=None, ou
         results = []
         for dst, st in zip(outs or [None] * len(out_structs), out_structs):
             shape = lead + tuple(st) + (P.NLIMBS, B)
-            if dst is None:
-                dst = torch.empty(shape, dtype=torch.int32, device=dense[0].device)
-            results.append(_check_destination(name, dst, shape, dense))
+            if dst is None:  # a fresh tensor needs no check
+                results.append(torch.empty(shape, dtype=torch.int32, device=dense[0].device))
+            else:
+                results.append(_check_destination(name, dst, shape, dense))
     rows = 1
     for d in lead:
         rows *= d

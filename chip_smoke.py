@@ -7,14 +7,18 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
  1. builds the kernels under bn_tpu_torch/csrc/ with nvcc (all sources at
     once) and prints the card's name and power limit and the build time;
  2. makes the main path's inputs: 8192 (G1, G2) pairs on the card by scalar
-    multiplication of the generators with seeded scalars;
- 3. calls each of the fifteen kernel wrappers on CUDA tensors — at a ragged
+    multiplication of the generators with seeded scalars (two ladders of 256
+    `point_double` and 256 `point_add` launches);
+ 3. calls each of the seventeen kernel wrappers on CUDA tensors — at a ragged
     batch of 1000 with the edge values 0, 1, m-1 and the Montgomery one, for
     both moduli where the kernel takes one, and at the shape the main path
     gives it at B = 8192 — and holds each result against the kernel's plain
     PyTorch version on the same inputs (`pow_fixed` also against Python's
     pow, with the Fermat exponent and one with a zero digit inside; the
-    squaring chain at n = 1, 2, 5; the precompute steps on both outputs).
+    squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
+    `point_add` and `point_double` for G1 and G2 on points that hold, at both
+    ends of the batch, P + inf, inf + Q, inf + inf, P + P, P + (-P) and one
+    point under two z, timed for G1 and G2 at B = 8192 and for G1 at 2^20).
     Tolerance: none, the limbs are integers and `max_abs_err` must be 0.  It
     times both (the kernel by replaying a CUDA graph of 50 launches, so `ms`
     is the card's time; the eager call, host included, is `wrapper_ms`),
@@ -23,17 +27,35 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     kernel's bound at the timed shape;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     fusion of ops/backend.py on.  Launch counts are set to 0 just before
-    that call and read just after it; every kernel must have been launched,
-    `pow_fixed` 3, `fq12_cyclo_sq_chain` 69, `double_step` 64 and `madd_step`
-    38 times.  Lanes 0, 1, B/2 and B-1 must equal the pure-Python oracle bit
-    for bit, the two lanes with an infinite input must give Gt one, and the
+    that call and read just after it; each of the pairing's fifteen kernels
+    must have been launched, neither curve kernel, `pow_fixed` 3,
+    `fq12_cyclo_sq_chain` 69, `double_step` 64 and `madd_step` 38 times.
+    Lanes 0, 1, B/2 and B-1 must equal the pure-Python oracle bit for bit,
+    the two lanes with an infinite input must give Gt one, and the
     bilinearity pair e(sP, Q) = e(P, sQ) must agree;
  5. drives the unfused path (every fusion off) on the first 1024 lanes of the
     same inputs: it must launch each of the eleven unfused kernels and none
     of the four fused ones, and return the fused run's lanes bit for bit;
     likewise the precompute alone, whole tensor;
  6. times both paths at B = 8192 in turns, three runs each;
- 7. prints one JSON line per phase, the card line, the `kernels` line and the
+ 7. `curve_path`: `curve.mul` for G1 and G2 on 1024 lanes with the
+    `curve_kernels` switch on and off: the same limbs, with it on exactly 256
+    `point_double` and 256 `point_add` launches a ladder and no `mod_add`;
+    both timed at B = 8192 in turns;
+ 8. `api_path` at B = 8192 through bn_tpu_torch.api only: random Fr, G1, G2
+    from seeds, byte round trips (the G2 decode runs the batched subgroup
+    check on 8192 lanes), refusal of a batch with one on-curve point outside
+    the r-order subgroup (DecodeError naming its index), of an off-curve
+    point and of a coordinate >= q, bilinearity through `pairing` and
+    `Gt.pow`, lanes against the oracle, and the two examples dh_torch and
+    joux_torch at batch 8192, with the seconds of each step;
+ 9. `msm_path`: the Pippenger MSM at n = 2^20, c = 16 — points k_i G made on
+    the card by one ladder, seeded scalars, the host schedule, `msm_run`, the
+    result equal to (sum s_i k_i mod r) G from the oracle, launch counts
+    equal to what the schedule implies — then a small skewed case that forces
+    window-local spill rounds, and the MSM at n = 2^12 with `curve_kernels`
+    off, equal limbs;
+10. prints one JSON line per phase, the card line, the `kernels` line and the
     last line {"ok": true, "device": {...}}.
 
 Any failure — no CUDA device, a build error, a kernel that differs from its
@@ -76,6 +98,17 @@ KERNEL_TABLE = {
     "double_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1068", [(3, 2)], 28, 0),
     "madd_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1077", [(3, 2), (2, 2)], 37, 0),
 }
+# the two curve kernels: (TPU kernel, products per point over Fq, over Fq2);
+# an addition's count is the chord's, which is what generic points need (the
+# kernel computes the doubling only where both operands are one finite point)
+CURVE_KERNELS = {
+    "point_add": ("bn_tpu/ops/curve_pallas.py:410", 16, 43),
+    "point_double": ("bn_tpu/ops/curve_pallas.py:417", 7, 16),
+}
+PAIRING_KERNELS = tuple(KERNEL_TABLE)  # the fifteen that pairing_batch launches
+LOG2_MSM = 20  # the MSM's size: 2^20 points
+MSM_C = 16  # its window
+B_CURVE_CHECK = 1024  # lanes of the curve.mul comparison, switch on against off
 FUSED_KERNELS = {"pow_fixed": 3, "fq12_cyclo_sq_chain": 69, "double_step": 64, "madd_step": 38}  # launches per pairing_batch
 UNFUSED = dict(pow_fixed=False, cyclo_chain=False, ladder=False)
 # mangled-name fragments of the __global__ functions, to read `ptxas -v`
@@ -86,7 +119,9 @@ PTXAS_NAMES = {
     "fq12_mul024_pre": "17k_fq12_mul024_pre", "fq12_cyclo_sq": "15k_fq12_cyclo_sq",
     "pow_fixed": "11k_pow_fixed", "fq12_cyclo_sq_chain": "21k_fq12_cyclo_sq_chain",
     "double_step": "13k_double_step", "madd_step": "11k_madd_step",
+    "point_add": "11k_point_addI2FqE", "point_double": "14k_point_doubleI2FqE",
 }
+PTXAS_NAMES_G2 = {"point_add": "11k_point_addI3Fq2E", "point_double": "14k_point_doubleI3Fq2E"}
 
 
 def statics(name, modulus):
@@ -148,14 +183,19 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
 
+    import os
+    import time
+
     import numpy as np
 
     import bn_tpu_torch  # noqa: F401
-    from bn_tpu_torch import ate, curve
+    from bn_tpu_torch import Fr, G1, G2, Gt, ate, curve, msm, pairing
+    from bn_tpu_torch import serialization as S
     from bn_tpu_torch import oracle as O
     from bn_tpu_torch import params as P
     from bn_tpu_torch.fields import fp, tower
     from bn_tpu_torch.ops import backend, build
+    from bn_tpu_torch.ops import curve_cuda as cc
     from bn_tpu_torch.ops import mont_cuda as mc
     from bn_tpu_torch.ops import tower_cuda as tc
 
@@ -170,6 +210,8 @@ def main():
     ptxas = {}
     for name, frag in PTXAS_NAMES.items():
         ptxas[name] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
+    for name, frag in PTXAS_NAMES_G2.items():
+        ptxas[name + "_g2"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     emit({"phase": "device", "card": smi, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 2), "sources": build.sources(), "ptxas": ptxas})
@@ -223,9 +265,14 @@ def main():
     k1 = fp.to_device(fp.FR, ks1)
     k2 = fp.to_device(fp.FR, ks2)
     g1s, g2s = curve.g1_spec(), curve.g2_spec()
+    if not backend.curve_kernels:
+        fail("the curve kernels are not the default")
+    build.reset_counts()
     p = curve.mul(g1s, curve.one(g1s, (B,)), k1)
     q = curve.mul(g2s, curve.one(g2s, (B,)), k2)
     torch.cuda.synchronize()
+    if (build.COUNTS["point_double"], build.COUNTS["point_add"], build.COUNTS["mod_add"]) != (512, 512, 0):
+        fail(f"the two input ladders did not run on the curve kernels: {dict(build.COUNTS)}")
 
     # ---- phase 3: every kernel against its plain version ---------------------
     def static_last(fn):
@@ -334,6 +381,98 @@ def main():
             row["ms_n5"] = device_ms(lambda: kernel(ins, P.Q, 5), 50)
             row["bound_ms_n5"] = max(bytes_ms, ops_ms(5))
         kernel_rows.append(row)
+
+    # the two curve kernels, G1 and G2: coordinates are separate tensors, and
+    # the batch must hold the degenerate pairs of the group law
+    def with_degenerate_lanes(spec, pp, qq):
+        """Overwrite the first six and the last six lanes of every row with
+        P + inf, inf + Q, inf + inf, P + P, P + (-P), and one point under two
+        different z (14 G by the ladder against 2 * (7 G))."""
+        F, gen, gmul = (O.FQ_OPS, O.G1_ONE, O.g1_mul) if spec.name == "G1" else (O.FQ2_OPS, O.G2_ONE, O.g2_mul)
+        a, b, inf = gmul(gen, 7), gmul(gen, 11), O.g_zero(F)
+        lhs = curve.to_device(spec, [a, inf, inf, a, a, gmul(gen, 14)])
+        rhs = curve.to_device(spec, [inf, b, inf, a, O.g_neg(F, a), O.g_double(F, a)])
+        for coords, special in ((pp, lhs), (qq, rhs)):
+            for t, sp in zip(coords, special):
+                t[..., :6] = sp
+                t[..., -6:] = sp
+        return pp, qq
+
+    def ragged_points(spec, seed):
+        """Two batches of 3 x B_RAGGED multiples of the generator (Jacobian,
+        z != 1) as coordinates (3, [2,] 16, B_RAGGED), degenerate lanes in."""
+        rng_c = np.random.default_rng(seed)
+        n = 3 * B_RAGGED
+        out = []
+        for _ in range(2):
+            ks = [int.from_bytes(rng_c.bytes(40), "big") % P.R_SCALAR or 1 for _ in range(n)]
+            flat = curve.mul(spec, curve.one(spec, (n,)), fp.to_device(fp.FR, ks))
+            out.append(tuple(torch.movedim(t.reshape(t.shape[:-1] + (3, B_RAGGED)), -2, 0).contiguous() for t in flat))
+        return with_degenerate_lanes(spec, *out)
+
+    def curve_call(name, group, pp, qq, plain=False):
+        fn = getattr(cc, name + ("_plain" if plain else ""))
+        return fn(group, pp, qq) if name == "point_add" else fn(group, pp)
+
+    def curve_timing(name, group, pp, qq, plain_lanes=None):
+        """Card time, eager time, plain time and bound of one call at the
+        shape of pp; the result must equal the plain version's.  At the MSM's
+        width the plain version (int64 partial products) runs on the first
+        `plain_lanes` lanes only, and its time is for those."""
+        got = curve_call(name, group, pp, qq)
+        cut = slice(None, plain_lanes)
+        pl, ql = (tuple(t[..., cut] for t in pt) for pt in (pp, qq))
+        want = curve_call(name, group, pl, ql, plain=True)
+        torch.cuda.synchronize()
+        err = compare(name, tuple(t[..., cut] for t in got), want, f"for {group} at B={pp[0].shape[-1]}")
+        ins = pp + qq if name == "point_add" else pp
+        n_bytes = 4 * (sum(t.numel() for t in ins) + sum(t.numel() for t in got))
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        products = CURVE_KERNELS[name][1 if group == "G1" else 2]
+        ops_ms = pp[0].shape[-1] * products * MADDS_PER_PRODUCT / madd_per_s * 1e3
+        return err, {
+            "ms": device_ms(lambda: curve_call(name, group, pp, qq), 50),
+            "wrapper_ms": timed_ms(lambda: curve_call(name, group, pp, qq), 50),
+            "plain_ms": timed_ms(lambda: curve_call(name, group, pl, ql, plain=True), 3),
+            "plain_lanes": pl[0].shape[-1],
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": [list(t.shape) for t in ins], "bytes": n_bytes, "products_per_element": products,
+        }
+
+    def neighbours(pt):
+        """The same points one lane on: a generic second operand."""
+        return tuple(torch.roll(t, 1, dims=-1) for t in pt)
+
+    for name, (replaces, _, _) in CURVE_KERNELS.items():
+        max_err = 0
+        for spec, seed in ((g1s, 31), (g2s, 32)):
+            pp, qq = ragged_points(spec, seed)
+            build.reset_counts()
+            got = curve_call(name, spec.name, pp, qq)
+            torch.cuda.synchronize()
+            if build.COUNTS[name] != 1:
+                fail(f"wrapper {name} counted {build.COUNTS[name]} launches for one call")
+            where = f"for {spec.name} at B={B_RAGGED}, lead 3, degenerate lanes in"
+            max_err = max(max_err, compare(name, got, curve_call(name, spec.name, pp, qq, plain=True), where))
+            if name == "point_add":  # the degenerate lanes did what the group law says
+                inf = curve.is_zero(spec, got)[0]
+                if inf[:6].tolist() != [False, False, True, False, True, False] or inf[-6:].tolist() != inf[:6].tolist():
+                    fail(f"point_add for {spec.name}: the degenerate lanes gave infinity at {inf[:6].tolist()}")
+                if any(t.data_ptr() == o.data_ptr() for t in pp + qq for o in got):
+                    fail("point_add returned one of its operands")
+            # a batch of one, as the MSM's Horner combine gives it
+            one_p, one_q = (tuple(t[0, ..., 7:8].contiguous() for t in pt) for pt in (pp, qq))
+            max_err = max(max_err, compare(name, curve_call(name, spec.name, one_p, one_q),
+                                           curve_call(name, spec.name, one_p, one_q, plain=True), "at B=1"))
+        err, main = curve_timing(name, "G1", p, neighbours(p))
+        err_g2, g2 = curve_timing(name, "G2", q, neighbours(q))
+        row = {"name": name, "route": "cuda", "source": "bn_tpu_torch/csrc/kernels_curve.cu", "replaces": replaces,
+               "launches": None, "max_abs_err": max(max_err, err, err_g2), "equal": True, **main,
+               "library_ms": None, "static": "G1",
+               **{k + "_g2": v for k, v in g2.items()},
+               **{k: (ptxas[name] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
+               **{k + "_g2": (ptxas[name + "_g2"] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")}}
+        kernel_rows.append(row)
     emit({"phase": "kernels", "compared": [r["name"] for r in kernel_rows], "all_equal": True,
           "ragged_batch": B_RAGGED, "tolerance": 0})
 
@@ -344,9 +483,11 @@ def main():
     out = ate.pairing_batch(p, q)
     torch.cuda.synchronize()
     counts = dict(build.COUNTS)
-    never = [k for k, v in counts.items() if v == 0]
+    never = [k for k in PAIRING_KERNELS if counts[k] == 0]
     if never:
         fail(f"pairing_batch launched these kernels no time: {never}")
+    if any(counts[k] for k in CURVE_KERNELS):
+        fail(f"pairing_batch launched a curve kernel: {counts}")
     if {k: counts[k] for k in FUSED_KERNELS} != FUSED_KERNELS:
         fail(f"the fused path launched {({k: counts[k] for k in FUSED_KERNELS})}, expected {FUSED_KERNELS}")
 
@@ -377,7 +518,8 @@ def main():
         out_unfused = ate.pairing_batch(ps, qs)
     torch.cuda.synchronize()
     counts_unfused = dict(build.COUNTS)
-    wrong = [k for k, v in counts_unfused.items() if (v != 0) == (k in FUSED_KERNELS)]
+    wrong = [k for k in PAIRING_KERNELS if (counts_unfused[k] != 0) == (k in FUSED_KERNELS)]
+    wrong += [k for k in CURVE_KERNELS if counts_unfused[k]]
     if wrong:
         fail(f"the unfused path's launches of {wrong} are not as expected: {counts_unfused}")
     if not torch.equal(out_unfused, out[..., :B_UNFUSED]):
@@ -414,9 +556,299 @@ def main():
           "pairings_per_s": {k: B / (v * 1e-3) for k, v in medians.items()},
           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": smi})
 
+    def clock(fn):
+        """(result, seconds) of fn() with the card's work included."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def ran(*names):
+        return {k: build.COUNTS[k] for k in names}
+
+    def same_limbs(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # ---- phase 7: curve.mul on the curve kernels against the per-field-op law --
+    curve_path = {"phase": "curve_path", "lanes_compared": B_CURVE_CHECK, "batch_timed": B, "card": smi}
+    for spec, pt, k in ((g1s, p, k1), (g2s, q, k2)):
+        base = curve.one(spec, (B_CURVE_CHECK,))
+        ksmall = k[..., :B_CURVE_CHECK].contiguous()
+        build.reset_counts()
+        on = curve.mul(spec, base, ksmall)
+        torch.cuda.synchronize()
+        counts_on = {k_: v for k_, v in build.COUNTS.items() if v}
+        if counts_on != {"mont_mul": 1, "point_double": 256, "point_add": 256}:
+            fail(f"curve.mul for {spec.name} on the curve kernels launched {counts_on}")
+        build.reset_counts()
+        with backend.fusions(curve_kernels=False):
+            off = curve.mul(spec, base, ksmall)
+        torch.cuda.synchronize()
+        counts_off = {k_: v for k_, v in build.COUNTS.items() if v}
+        if any(counts_off.get(k_) for k_ in CURVE_KERNELS) or not counts_off.get("mod_add"):
+            fail(f"curve.mul for {spec.name} with curve_kernels off launched {counts_off}")
+        if not same_limbs(on, off) or not same_limbs(on, tuple(t[..., :B_CURVE_CHECK] for t in pt)):
+            fail(f"curve.mul for {spec.name}: the two paths, or two runs, give different limbs")
+        times = {"on": [], "off": []}
+        full = curve.one(spec, (B,))
+        for _ in range(2):
+            times["on"].append(clock(lambda: curve.mul(spec, full, k))[1] * 1e3)
+            with backend.fusions(curve_kernels=False):
+                times["off"].append(clock(lambda: curve.mul(spec, full, k))[1] * 1e3)
+        curve_path[spec.name] = {"launches_on": counts_on, "launches_off": counts_off,
+                                 "launches_off_total": sum(counts_off.values()), "equal_limbs": True,
+                                 "mul_ms_runs": times, "mul_ms": {k_: min(v) for k_, v in times.items()}}
+    emit(curve_path)
+
+    # ---- phase 8: the API at B = 8192 ------------------------------------------
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import dh_torch
+    import joux_torch
+
+    steps = {}
+
+    def step(name, fn):
+        res, steps[name] = clock(fn)
+        return res
+
+    build.reset_counts()
+    ap = step("G1.random", lambda: G1.random(101, B))
+    aq = step("G2.random", lambda: G2.random(202, B))
+    sc = step("Fr.random", lambda: Fr.random(303, B))
+    if ran("point_double", "point_add") != {"point_double": 512, "point_add": 512}:
+        fail(f"G1.random and G2.random launched {ran('point_double', 'point_add')}")
+    sc_bytes = step("Fr.to_bytes", sc.to_bytes)
+    if not (step("Fr.from_bytes", lambda: Fr.from_bytes(sc_bytes)) == sc):
+        fail("Fr bytes do not round-trip")
+    ap_bytes = step("G1.to_bytes", ap.to_bytes)
+    if not (step("G1.from_bytes", lambda: G1.from_bytes(ap_bytes)) == ap):
+        fail("G1 bytes do not round-trip")
+    aq_bytes = step("G2.to_bytes", aq.to_bytes)
+    build.reset_counts()
+    if not (step("G2.from_bytes", lambda: G2.from_bytes(aq_bytes)) == aq):
+        fail("G2 bytes do not round-trip")
+    if ran("point_double", "point_add") != {"point_double": 256, "point_add": 257}:
+        fail(f"the G2 decode's subgroup check launched {ran('point_double', 'point_add')}")
+    if len(sc_bytes[0]) != 32 or len(ap_bytes[0]) != 65 or len(aq_bytes[0]) != 129:
+        fail("wrong encoding lengths")
+
+    # an on-curve point of the twist outside the r-order subgroup
+    outside = None
+    for i in range(1, 200):
+        x = (i, 1)
+        rhs = O.fq2_add(O.fq2_mul(O.fq2_sq(x), x), O.twist_b())
+        y = O.fq2_sqrt(rhs)
+        if y is not None and not O.g2_in_subgroup((x, y)):
+            outside = (x, y)
+            break
+    if outside is None or not O.g2_on_curve(outside):
+        fail("no on-curve point outside the subgroup found")
+    bad_index = B // 2 + 1
+
+    def refused(fn, needle=""):
+        try:
+            fn()
+        except S.DecodeError as exc:
+            return needle in str(exc)
+        return False
+
+    bad = list(aq_bytes)
+    bad[bad_index] = bytes([4]) + S.encode_fq2(outside[0]) + S.encode_fq2(outside[1])
+    if not step("G2.from_bytes, one point outside the subgroup", lambda: refused(lambda: G2.from_bytes(bad), f"batch index {bad_index})")):
+        fail("a G2 batch with a point outside the subgroup was not refused with its index")
+    off_curve_g2 = bytes([4]) + S.encode_fq2((0, 0)) + S.encode_fq2((1, 1))
+    off_curve_g1 = bytes([4]) + (0).to_bytes(32, "big") + (1).to_bytes(32, "big")
+    too_large_g1 = bytes([4]) + P.Q.to_bytes(32, "big") + (2).to_bytes(32, "big")
+    too_large_g2 = bytes([4]) + (P.Q * P.Q).to_bytes(64, "big") + S.encode_fq2((1, 1))
+    for what, fn in (("off-curve G2", lambda: G2.from_bytes(aq_bytes[:3] + [off_curve_g2])),
+                     ("off-curve G1", lambda: G1.from_bytes(ap_bytes[:3] + [off_curve_g1])),
+                     ("G1 coordinate >= q", lambda: G1.from_bytes([too_large_g1])),
+                     ("G2 coordinate >= q^2", lambda: G2.from_bytes([too_large_g2])),
+                     ("Fr >= r", lambda: Fr.from_bytes([P.R_SCALAR.to_bytes(32, "big")]))):
+        if not refused(fn):
+            fail(f"{what} was not refused")
+
+    ps = step("G1 * Fr", lambda: ap * sc)
+    qs = step("G2 * Fr", lambda: aq * sc)
+    e_a = step("pairing(p*s, q)", lambda: pairing(ps, aq))
+    e_b = step("pairing(p, q*s)", lambda: pairing(ap, qs))
+    e_pq = step("pairing(p, q)", lambda: pairing(ap, aq))
+    build.reset_counts()
+    e_c = step("Gt.pow", lambda: e_pq.pow(sc))
+    if ran("fq12_sq", "fq12_mul") != {"fq12_sq": 256, "fq12_mul": 256}:
+        fail(f"Gt.pow launched {ran('fq12_sq', 'fq12_mul')}")
+    if not (e_a == e_b and e_b == e_c) or e_a == Gt.one(B):
+        fail("bilinearity through the API: pairing(p*s, q), pairing(p, q*s), pairing(p, q)^s differ, or are one")
+    if not (step("Gt * Gt.inverse", lambda: e_a * e_a.inverse()) == Gt.one(B)):
+        fail("a * a.inverse() is not Gt one")
+    # sample lanes against the oracle: the scalars are those of the seeds
+    kp, kq, ksc = (Fr.random(seed, B, "cpu").to_ints() for seed in (101, 202, 303))
+    api_lanes = [0, B - 1]
+    for lane in api_lanes:
+        o_p, o_q = O.g1_mul(O.G1_ONE, kp[lane]), O.g2_mul(O.G2_ONE, kq[lane])
+        lane_ps = curve.from_device(g1s, tuple(t[..., lane:lane + 1] for t in ps.dev))[0]
+        if not O.g_eq(O.FQ_OPS, lane_ps, O.g1_mul(o_p, ksc[lane])):
+            fail(f"lane {lane} of p * s differs from the oracle")
+        if tower.fq12_from_device(e_pq.dev[..., lane:lane + 1])[0] != O.pairing(o_p, o_q):
+            fail(f"lane {lane} of pairing(p, q) differs from the oracle")
+    if ap_bytes[0] != S.encode_g1(O.g1_mul(O.G1_ONE, kp[0])) or aq_bytes[-1] != S.encode_g2(O.g2_mul(O.G2_ONE, kq[-1])):
+        fail("the encoded points differ from the oracle's")
+    build.reset_counts()
+    step("dh_torch.main", lambda: dh_torch.main(batch=B, seed=11))
+    counts_dh = ran("point_double", "point_add")
+    build.reset_counts()
+    step("joux_torch.main", lambda: joux_torch.main(batch=B, seed=1))
+    counts_joux = {k_: v for k_, v in build.COUNTS.items() if v}
+    if counts_dh != {"point_double": 9 * 256, "point_add": 9 * 256}:
+        fail(f"dh_torch.main launched {counts_dh}")
+    emit({"phase": "api_path", "batch": B, "seconds": steps, "seconds_total": sum(steps.values()),
+          "refused": ["G2 outside the subgroup (index named)", "off-curve G1 and G2", "coordinate >= q", "Fr >= r"],
+          "oracle_lanes": api_lanes, "launches_dh": counts_dh, "launches_joux": counts_joux,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": smi})
+
+    # ---- phase 9: the Pippenger MSM at 2^20 points ------------------------------
+    n_msm = 1 << LOG2_MSM
+    rng = np.random.default_rng(20260820)
+    ks = [int.from_bytes(rng.bytes(40), "big") % P.R_SCALAR or 1 for _ in range(n_msm)]
+    ss = [int.from_bytes(rng.bytes(40), "big") % P.R_SCALAR for _ in range(n_msm)]
+
+    kdev, scalars_to_card_s = clock(lambda: fp.to_device(fp.FR, ks))  # Python ints to limbs, on the host
+
+    def make_points():
+        jac = curve.mul(g1s, curve.one(g1s, (n_msm,)), kdev)
+        ax, ay = curve.to_affine(g1s, jac)
+        z = fp.zeros(fp.FQ, (1,))  # the appended slot: index n means 'no point'
+        return jac, (torch.cat([ax, z], dim=-1), torch.cat([ay, z], dim=-1),
+                     torch.cat([fp.ones(fp.FQ, (n_msm,)), z], dim=-1))
+
+    torch.cuda.reset_peak_memory_stats()
+    (jac, (px, py, pz)), points_s = clock(make_points)
+    points_peak = torch.cuda.max_memory_allocated()
+    # the curve kernels at the MSM's width, on these points
     for row in kernel_rows:
-        row["launches"] = counts[row["name"]]
-        row["launches_unfused_1024"] = counts_unfused[row["name"]]
+        if row["name"] in CURVE_KERNELS:
+            err, at_msm = curve_timing(row["name"], "G1", jac, neighbours(jac), plain_lanes=1 << 16)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row.update({k_ + "_g1_2p20": v for k_, v in at_msm.items()})
+    # every one of the 2^20 lanes against the plain version, in the shape the
+    # MSM's shift-scans give the kernels: (w, 16, 2^c) with the windows in front;
+    # the flat call must give the same lanes
+    def windows_in_front(pt):
+        return tuple(t.reshape(16, n_msm // (1 << MSM_C), 1 << MSM_C).transpose(0, 1).contiguous() for t in pt)
+
+    jac_w, next_w = windows_in_front(jac), windows_in_front(neighbours(jac))
+    for name in CURVE_KERNELS:
+        got_w = curve_call(name, "G1", jac_w, next_w)
+        compare(name, got_w, curve_call(name, "G1", jac_w, next_w, plain=True),
+                f"at {tuple(jac_w[0].shape)}, all 2^{LOG2_MSM} lanes")
+        compare(name, windows_in_front(curve_call(name, "G1", jac, neighbours(jac))), got_w,
+                f"flat at B={n_msm} against the same lanes with the windows in front")
+    del jac, jac_w, next_w, got_w
+    # the point arrays themselves: an odd batch of 2^20 + 1 whose last lane is
+    # the appended infinity; the ragged end against the plain version
+    odd, odd_next = (px, py, pz), neighbours((px, py, pz))
+    tail = slice(n_msm + 1 - 4096, None)
+    for name in CURVE_KERNELS:
+        compare(name, tuple(t[..., tail] for t in curve_call(name, "G1", odd, odd_next)),
+                curve_call(name, "G1", tuple(t[..., tail] for t in odd), tuple(t[..., tail] for t in odd_next), plain=True),
+                f"at B={n_msm + 1}, the ragged end")
+    del odd, odd_next
+    r_cap = msm.default_r_cap(n_msm, MSM_C)
+    t0 = time.perf_counter()
+    rounds = msm.build_rounds(ss, MSM_C, r_cap)
+    schedule_s = time.perf_counter() - t0
+    first, spills = rounds
+
+    def expected_launches(first, spills, cap, c):
+        w = first.shape[0]
+        return {"point_add": first.shape[-1] + cap * len(spills) + 2 * c + (w - 1), "point_double": (w - 1) * c}
+
+    run_s = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        build.reset_counts()
+        res, dt = clock(lambda: msm.msm_run(px, py, pz, rounds, MSM_C))
+        run_s.append(dt)
+    counts_msm = {k_: v for k_, v in build.COUNTS.items() if v}
+    if counts_msm != expected_launches(first, spills, r_cap, MSM_C):
+        fail(f"msm_run launched {counts_msm}, the schedule implies {expected_launches(first, spills, r_cap, MSM_C)}")
+    expect = O.g1_mul(O.G1_ONE, sum(s_ * k_ for s_, k_ in zip(ss, ks)) % P.R_SCALAR)
+    if not O.g_eq(O.FQ_OPS, curve.from_device(g1s, res)[0], expect):
+        fail("the MSM at 2^20 points differs from the oracle")
+    msm_peak = torch.cuda.max_memory_allocated()
+    # where a run's time goes: the schedule's upload, the gathers alone, the
+    # accumulation (gathers and additions), the bucket reduce
+    w_msm, nb_msm = first.shape[0], 1 << MSM_C
+    idx_first, upload_s = clock(lambda: torch.from_numpy(first).to(dev))
+    by_round = idx_first.reshape(w_msm * nb_msm, -1).t().contiguous()
+
+    def gathers_alone():
+        for ids in by_round:
+            for t in (px, py, pz):
+                torch.index_select(t, -1, ids)
+
+    _, gather_s = clock(gathers_alone)
+    acc, accumulate_s = clock(lambda: msm._accumulate_rounds(px, py, pz, idx_first, curve.zero(g1s, (w_msm * nb_msm,))))
+    for wk, idx in spills:
+        acc = msm._accumulate_window(px, py, pz, torch.from_numpy(idx).to(dev), acc, wk, nb_msm)
+    staged, reduce_s = clock(lambda: msm._bucket_reduce(acc, MSM_C, w_msm, nb_msm))
+    if not same_limbs(staged, res):
+        fail("the MSM run in stages differs from msm_run")
+    del acc, idx_first, by_round
+
+    # a skewed input that overflows one bucket: window-local spill rounds
+    rng_s = np.random.default_rng(66)
+    n_skew, c_skew, cap_skew = 24, 4, 2
+    skew_pts = [O.g1_mul(O.G1_ONE, int(rng_s.integers(1, 1 << 62))) for _ in range(n_skew)]
+    heavy = int.from_bytes(rng_s.bytes(40), "big") % P.R_SCALAR
+    skew_scalars = [heavy] * (n_skew // 2) + [int.from_bytes(rng_s.bytes(40), "big") % P.R_SCALAR for _ in range(n_skew // 2)]
+    skew_first, skew_spills = msm.build_rounds(skew_scalars, c_skew, cap_skew)
+    build.reset_counts()
+    skew_res = msm.msm(skew_pts, skew_scalars, c=c_skew, r_cap=cap_skew)
+    torch.cuda.synchronize()
+    counts_skew = {k_: v for k_, v in build.COUNTS.items() if v}
+    if not skew_spills or counts_skew != expected_launches(skew_first, skew_spills, cap_skew, c_skew):
+        fail(f"the skewed MSM: {len(skew_spills)} spill rounds, launches {counts_skew}")
+    if not O.g_eq(O.FQ_OPS, curve.from_device(g1s, skew_res)[0], msm.msm_oracle(skew_pts, skew_scalars)):
+        fail("the skewed MSM differs from the oracle")
+
+    # the same MSM at 2^12 points on both group-law paths
+    n_small = 1 << 12
+    c_small = msm.auto_c(n_small)
+    small_pts = tuple(torch.cat([t[..., :n_small], t[..., -1:]], dim=-1) for t in (px, py, pz))
+    small_rounds = msm.build_rounds(ss[:n_small], c_small, msm.default_r_cap(n_small, c_small))
+    small_on, small_on_s = clock(lambda: msm.msm_run(*small_pts, small_rounds, c_small))
+    build.reset_counts()
+    with backend.fusions(curve_kernels=False):
+        small_off, small_off_s = clock(lambda: msm.msm_run(*small_pts, small_rounds, c_small))
+    if any(build.COUNTS[k_] for k_ in CURVE_KERNELS) or not same_limbs(small_on, small_off):
+        fail("the MSM at 2^12 points differs between the curve kernels and the per-field-op law")
+    expect_small = O.g1_mul(O.G1_ONE, sum(s_ * k_ for s_, k_ in zip(ss[:n_small], ks[:n_small])) % P.R_SCALAR)
+    if not O.g_eq(O.FQ_OPS, curve.from_device(g1s, small_on)[0], expect_small):
+        fail("the MSM at 2^12 points differs from the oracle")
+    emit({"phase": "msm_path", "n": n_msm, "c": MSM_C, "r_cap": r_cap, "R": int(first.shape[-1]),
+          "spill_rounds": len(spills), "scalars_to_card_s": scalars_to_card_s, "points_s": points_s,
+          "schedule_s": schedule_s, "run_s": run_s,
+          "points_per_s": n_msm / min(run_s), "launches": counts_msm, "oracle_exact": True,
+          "stages_s": {"schedule_upload": upload_s, "gathers_alone": gather_s,
+                       "accumulate_first_schedule": accumulate_s, "bucket_reduce": reduce_s},
+          "peak_memory_bytes": msm_peak, "peak_memory_bytes_point_generation": points_peak,
+          "skewed": {"n": n_skew, "c": c_skew, "r_cap": cap_skew, "spill_rounds": len(skew_spills),
+                     "launches": counts_skew, "oracle_exact": True},
+          "n_4096": {"c": c_small, "R": int(small_rounds[0].shape[-1]), "spill_rounds": len(small_rounds[1]),
+                     "run_s_curve_kernels": small_on_s, "run_s_per_field_op": small_off_s,
+                     "launches_per_field_op": sum(build.COUNTS.values()), "equal_limbs": True, "oracle_exact": True},
+          "card": smi})
+
+    for row in kernel_rows:
+        if row["name"] in CURVE_KERNELS:  # their path is the MSM; the API's ladders beside it
+            row["launches"] = counts_msm[row["name"]]
+            row["launches_per_curve_mul"] = curve_path["G1"]["launches_on"][row["name"]]
+            row["launches_per_curve_mul_g2"] = curve_path["G2"]["launches_on"][row["name"]]
+        else:
+            row["launches"] = counts[row["name"]]
+            row["launches_unfused_1024"] = counts_unfused[row["name"]]
     print(smi, flush=True)
     emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

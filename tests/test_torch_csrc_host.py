@@ -1,10 +1,11 @@
 """The CUDA headers of the port, compiled for the host and held against the
 plain PyTorch versions.
 
-bn_tpu_torch/csrc/fq.cuh and tower.cuh are plain C++ on uint32_t/uint64_t, so
-g++ builds them with tests/torch_csrc_host.cpp standing in for the kernels
-(same offsets, a loop instead of a grid).  This checks the formulas, the limb
-packing and the memory layout of all fifteen kernels without a GPU; that the
+bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
+uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
+in for the kernels (same offsets, a loop instead of a grid).  This checks the
+formulas, the limb packing and the memory layout of all seventeen kernels
+without a GPU; that the
 kernels build and launch is what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
@@ -19,10 +20,11 @@ import pytest
 import torch
 
 from bn_tpu_torch import params as TP
+from bn_tpu_torch.ops import curve_cuda as cc
 from bn_tpu_torch.ops import mont_cuda as mc
 from bn_tpu_torch.ops import tower_cuda as tc
 
-from _torch_inputs import rand_field
+from _torch_inputs import curve_points, rand_field
 
 _ROOT = Path(__file__).resolve().parent.parent
 _OPS = [
@@ -62,6 +64,10 @@ def host_lib(tmp_path_factory):
     lib.host_run.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_int, u32p, u32p, ctypes.c_uint32]
     lib.host_run.restype = ctypes.c_int
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.host_curve.argtypes = [ctypes.c_int, ctypes.c_int, pp, pp, ctypes.c_longlong, ctypes.c_longlong,
+                               u32p, ctypes.c_uint32]
+    lib.host_curve.restype = ctypes.c_int
     return lib
 
 
@@ -135,6 +141,35 @@ def test_header_madd_step_equals_plain(host_lib):
     got = _run_host(host_lib, "madd_step", [r, base], TP.Q, two_outputs=True)
     want = tc.madd_step_plain(*_tensors([r, base]))
     assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
+
+
+def _run_host_curve(lib, group, coords):
+    """jac_add (six coordinate arrays) or jac_double (three) of curve.cuh."""
+    arrs = [np.ascontiguousarray(c.astype(np.int32)) for c in coords]
+    outs = [np.empty_like(arrs[0]) for _ in range(3)]
+    rows = int(np.prod(arrs[0].shape[: arrs[0].ndim - 2 - len(cc.STRUCTS[group])], dtype=np.int64))
+    words, inv32 = mc._mod_args(TP.Q)
+    ins_c = (ctypes.c_void_p * len(arrs))(*(a.ctypes.data for a in arrs))
+    outs_c = (ctypes.c_void_p * 3)(*(o.ctypes.data for o in outs))
+    rc = lib.host_curve(int(len(arrs) == 6), len(cc.STRUCTS[group]), ins_c, outs_c, rows, arrs[0].shape[-1], words, inv32)
+    assert rc == 0
+    return outs
+
+
+@pytest.mark.parametrize("group", ["G1", "G2"])
+@pytest.mark.parametrize("lead", [(), (3,)], ids=["flat", "lead3"])
+def test_header_point_add_and_double_equal_plain(host_lib, group, lead):
+    """Random points with, at both ends of the flat batch, P + inf, inf + Q,
+    inf + inf, P + P, P + (-P) and one point under two z (curve_points)."""
+    p, q = curve_points(group, 400, lead + (29,))
+    got = _run_host_curve(host_lib, group, p + q)
+    want = cc.point_add_plain(group, _tensors(p), _tensors(q))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+    got = _run_host_curve(host_lib, group, p)
+    want = cc.point_double_plain(group, _tensors(p))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
 
 
 def test_inv32_matches_header_convention():

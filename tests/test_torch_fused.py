@@ -30,6 +30,7 @@ from bn_tpu_torch import params as TP
 from bn_tpu_torch.fields import fp as tfp
 from bn_tpu_torch.fields import tower as ttower
 from bn_tpu_torch.ops import backend, build
+from bn_tpu_torch.ops import curve_cuda as cc
 from bn_tpu_torch.ops import mont_cuda as mc
 from bn_tpu_torch.ops import tower_cuda as tc
 
@@ -187,7 +188,7 @@ def test_switch_chooses_a_path_not_a_result_and_a_cpu_tensor_launches_nothing(fu
 
 def test_every_kernel_has_a_count_and_a_plain_version():
     new = ("pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step")
-    assert len(build.KERNELS) == 15 and set(new) <= set(build.COUNTS)
+    assert len(build.KERNELS) == 17 and set(new) <= set(build.COUNTS)
     for name in build.KERNELS:
-        module = mc if hasattr(mc, name) else tc
+        module = next(m for m in (mc, tc, cc) if hasattr(m, name))
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))

@@ -1,9 +1,9 @@
-// Host build of the port's CUDA field/tower headers (bn_tpu_torch/csrc/fq.cuh,
-// tower.cuh are plain C++ when no CUDA compiler is at work).  One loop over
+// Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
+// fq.cuh, tower.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).  One loop over
 // the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
-#include "tower.cuh"
+#include "curve.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
@@ -86,5 +86,43 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
       default: return 1;
     }
   }
+  return 0;
+}
+
+// point_add (add = 1: six coordinate arrays in, three out) and point_double
+// (add = 0: three in, three out) over Fq (fq2 = 0) or Fq2, with the kernels'
+// offsets: every coordinate is its own array.
+template <class F>
+static void curve_run(int add, const int32_t* const* in, int32_t* const* out, long long rows, long long B,
+                      const Mod& m) {
+  for (int64_t t = 0; t < rows * B; t++) {
+    int64_t off = (t / B) * FieldIO<F>::width * BN_NLIMB * B + (t % B);
+    Jac<F> p, q, r;
+    p.x = FieldIO<F>::load(in[0] + off, B);
+    p.y = FieldIO<F>::load(in[1] + off, B);
+    p.z = FieldIO<F>::load(in[2] + off, B);
+    if (add) {
+      q.x = FieldIO<F>::load(in[3] + off, B);
+      q.y = FieldIO<F>::load(in[4] + off, B);
+      q.z = FieldIO<F>::load(in[5] + off, B);
+      r = jac_add(p, q, m);
+    } else {
+      r = jac_double(p, m);
+    }
+    FieldIO<F>::store(out[0] + off, B, r.x);
+    FieldIO<F>::store(out[1] + off, B, r.y);
+    FieldIO<F>::store(out[2] + off, B, r.z);
+  }
+}
+
+extern "C" int host_curve(int add, int fq2, const int32_t* const* in, int32_t* const* out, long long rows,
+                          long long B, const uint32_t* mod, uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  if (fq2)
+    curve_run<Fq2>(add, in, out, rows, B, m);
+  else
+    curve_run<Fq>(add, in, out, rows, B, m);
   return 0;
 }

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Compare two builds of the port's Fq12-sized and step kernels on the card:
-the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE) against the
-same product inlined at each of its 18 to 54 uses.  ops/build.py's
+"""Compare two builds of the port's Fq12-sized, step and curve kernels on the
+card: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE) against
+the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choice made from these numbers.
 
-For each of the seven kernels and each variant it prints one JSON line:
+For each kernel and each variant it prints one JSON line:
 nvcc's build time, what `ptxas -v` reports for the entry (registers, stack,
 spills), the kernel's time at B = 8192 (CUDA events, 50 launches after a
 warm-up, variants in turns: call, inline, inline, call), and whether the two
@@ -32,14 +32,19 @@ from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
 B = 8192
 VARIANTS = {"call": ["-DBN_MUL_OUT_OF_LINE"], "inline": []}
-KERNELS = {  # entry -> (operand structs, number of outputs shaped like the first operand, own arguments)
-    "fq12_mul": ([(2, 3, 2), (2, 3, 2)], 1, ()),
-    "fq12_sq": ([(2, 3, 2)], 1, ()),
-    "fq12_mul024_pre": ([(2, 3, 2), (2,), (2, 2)], 1, ()),
-    "fq12_cyclo_sq": ([(2, 3, 2)], 1, ()),
-    "fq12_cyclo_sq_chain": ([(2, 3, 2)], 1, (5,)),  # the longest run of the main path
-    "double_step": ([(3, 2)], 2, tc._step_const_args()),
-    "madd_step": ([(3, 2), (2, 2)], 2, ()),
+KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
+    "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
+    "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
+    "fq12_mul024_pre": ("fq12_mul024_pre", [(2, 3, 2), (2,), (2, 2)], 1, ()),
+    "fq12_cyclo_sq": ("fq12_cyclo_sq", [(2, 3, 2)], 1, ()),
+    "fq12_cyclo_sq_chain": ("fq12_cyclo_sq_chain", [(2, 3, 2)], 1, (5,)),  # the longest run of the main path
+    "double_step": ("double_step", [(3, 2)], 2, tc._step_const_args()),
+    "madd_step": ("madd_step", [(3, 2), (2, 2)], 2, ()),
+    # coordinates are random field elements, generic lanes: no doubling, no infinity
+    "point_add G1": ("point_add", [()] * 6, 3, (0,)),
+    "point_add G2": ("point_add", [(2,)] * 6, 3, (1,)),
+    "point_double G1": ("point_double", [()] * 3, 3, (0,)),
+    "point_double G2": ("point_double", [(2,)] * 3, 3, (1,)),
 }
 
 
@@ -54,7 +59,7 @@ def main():
     # start every compile at once (one per source and variant), then wait;
     # time each by its own clock
     procs = {}
-    for stem in sorted({build.ENTRIES[name][0] for name in KERNELS}):
+    for stem in sorted({build.ENTRIES[spec[0]][0] for spec in KERNELS.values()}):
         for var, flags in VARIANTS.items():
             so = out_dir / f"lib{stem}.{var}.so"
             procs[stem, var] = (build.compile_start(stem, so, flags), so, time.perf_counter())
@@ -73,7 +78,7 @@ def main():
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    for name, (structs, n_out, own) in KERNELS.items():
+    for label, (name, structs, n_out, own) in KERNELS.items():
         stem = build.ENTRIES[name][0]
         ins = []
         for st in structs:
@@ -105,7 +110,7 @@ def main():
             regs = re.findall(r"Used (\d+) registers", log)
             spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
             print(json.dumps({
-                "kernel": name, "variant": var, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
+                "kernel": label, "variant": var, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
                 "registers": [int(r) for r in regs],
                 "stack_spillstore_spillload_bytes": [[int(x) for x in s] for s in spills],
                 "same_result": bool(torch.equal(outs["call"], outs["inline"])), "card": card,
