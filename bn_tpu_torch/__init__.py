@@ -4,10 +4,12 @@ Same structure and names as the JAX package `bn_tpu`, which stays the
 reference.  This package imports torch and numpy only.  Covered so far: the
 reference crate's surface `Fr`, `G1`, `G2`, `Gt`, `pairing` (api.py) with the
 validated wire format (serialization.py, host codec utils/native.py), the
-batched reduced pairing (`ate.pairing_batch`), the Pippenger MSM (msm.py) and
-everything below them — Fq/Fr Montgomery arithmetic over 16-bit limb tensors,
-the Fq2/Fq6/Fq12 tower, the G1/G2 Jacobian groups — on seventeen hand-written
-CUDA kernels (csrc/).
+batched reduced pairing (`ate.pairing_batch`), the Pippenger MSM (msm.py),
+their sharding over the ranks of a torch.distributed group (parallel/dist.py)
+and everything below them — Fq/Fr Montgomery arithmetic over 16-bit limb
+tensors, the Fq2/Fq6/Fq12 tower, the G1/G2 Jacobian groups — on nineteen
+hand-written CUDA kernels (csrc/), one for each Pallas kernel of the JAX
+package.
 
 Tensors on the CPU go through the kernels' plain PyTorch versions; tensors on
 a CUDA device go through the kernels, which are built with nvcc at first use.

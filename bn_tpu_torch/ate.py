@@ -121,22 +121,41 @@ def precompute(q_affine):
 
 
 def miller_loop(coeffs, p_affine):
-    """Replay coefficients against affine G1 points (src/groups/mod.rs:485-520)."""
+    """Replay coefficients against affine G1 points (src/groups/mod.rs:485-520).
+
+    coeffs is precompute's (102, 3, ..., 2, L, B) tensor, p_affine (px, py)
+    with px (..., L, B).  With the `miller_step` switch of ops/backend.py on,
+    every ladder step is one `miller_step` kernel that squares (on a doubling
+    step), scales the line by the G1 point and multiplies it in; otherwise
+    (the default) the scaling is hoisted out of the loop and each step is an
+    `fq12_sq` (doubling steps) and an `fq12_mul024_pre` launch.  Same limbs
+    either way."""
     flags = P.miller_schedule()
     px, py = p_affine
     batch_shape = tuple(px.shape[:-2]) + (px.shape[-1],)
     f = tower.ones12(batch_shape, px.device)
+    # a step's struct axis goes behind the leading batch axes, where the
+    # kernels take it: (102, ..., 3, 2, L, B); a view when there are none
+    steps = coeffs.movedim(1, -4).contiguous()
+
+    if backend.miller_step:
+        px, py = px.contiguous(), py.contiguous()
+        spare = torch.empty_like(f)
+        for k, is_add in enumerate(flags):
+            tc.miller_step(f, steps[k], px, py, square=not is_add, out=spare)
+            f, spare = spare, f
+        return f
 
     # The G1 scaling is hoisted out of the loop: every step's (ell_vw, ell_vv)
     # is multiplied by (g1.y, g1.x) in one batched product over all 102 steps
     # (semantics per step identical to the reference, src/groups/mod.rs:500-508).
-    yx = torch.stack([py, px])  # (2, L, B)
-    scaled = tower.fq2_scale_fq(coeffs[:, 1:3], yx[None])  # (102, 2, 2, L, B)
+    yx = torch.stack([py, px], dim=-3)  # (..., 2, L, B)
+    scaled = tower.fq2_scale_fq(steps[..., 1:3, :, :, :], yx)  # (102, ..., 2, 2, L, B)
 
     for k, is_add in enumerate(flags):
         if not is_add:
             f = tower.fq12_sq(f)
-        f = tower.fq12_mul_by_024_prescaled(f, coeffs[k, 0], scaled[k])
+        f = tower.fq12_mul_by_024_prescaled(f, steps[k, ..., 0, :, :, :], scaled[k])
     return f
 
 

@@ -313,6 +313,14 @@ BN_DEV void g2_store(int32_t* p, int64_t stride, const G2Proj& r) {
   fq2_store(p + 4 * BN_NLIMB * stride, stride, r.z);
 }
 
+BN_DEV EllCoeffs ell_load(const int32_t* p, int64_t stride) {
+  EllCoeffs c;
+  c.ell_0 = fq2_load(p, stride);
+  c.ell_vw = fq2_load(p + 2 * BN_NLIMB * stride, stride);
+  c.ell_vv = fq2_load(p + 4 * BN_NLIMB * stride, stride);
+  return c;
+}
+
 BN_DEV void ell_store(int32_t* p, int64_t stride, const EllCoeffs& c) {
   fq2_store(p, stride, c.ell_0);
   fq2_store(p + 2 * BN_NLIMB * stride, stride, c.ell_vw);
@@ -358,4 +366,25 @@ BN_DEV void g2_madd_step(G2Proj& r, EllCoeffs& c, const Fq2& bx, const Fq2& by, 
   c.ell_0 = fq2_xi(fq2_sub(fq2_mul(e, bx, m), fq2_mul(d, by, m), m), m);
   c.ell_vw = d;
   c.ell_vv = fq2_neg(e, m);
+}
+
+// ---- one step of the Miller loop --------------------------------------------
+
+// The sparse multiply by a line as the precompute emits it: (ell_0, ell_vw,
+// ell_vv), unscaled.  Note the slots: fq12_mul_by_024 takes x2 = ell_vv and
+// x4 = ell_vw.
+BN_DEV Fq12 fq12_mul_by_line(const Fq12& f, const EllCoeffs& c, const Mod& m) {
+  return fq12_mul_by_024(f, c.ell_0, c.ell_vv, c.ell_vw, m);
+}
+
+// One Miller step (src/groups/mod.rs:494-509): f^2 on a doubling step
+// (kSquare), then the line evaluated at the affine G1 point (px, py), that
+// is ell_vw scaled by py and ell_vv by px, multiplied in sparsely.  36 + 4 +
+// 39 = 79 base-field products with the square, 43 without.
+template <bool kSquare>
+BN_DEV Fq12 fq12_miller_step(const Fq12& f, const EllCoeffs& c, const Fq& px, const Fq& py, const Mod& m) {
+  Fq2 vv = fq2_scale_fq(c.ell_vv, px, m);
+  Fq2 vw = fq2_scale_fq(c.ell_vw, py, m);
+  if constexpr (kSquare) return fq12_mul_by_024(fq12_sq(f, m), c.ell_0, vv, vw, m);
+  return fq12_mul_by_024(f, c.ell_0, vv, vw, m);
 }

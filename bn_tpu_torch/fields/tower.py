@@ -7,9 +7,10 @@ axes lead, batch axis last):
     Fq6  : (..., 3, 2, L, B)   Fq6  = Fq2[v]/(v^3-xi), xi = 9+u
     Fq12 : (..., 2, 3, 2, L, B) Fq12 = Fq6[w]/(w^2-v)
 
-fq2_mul, fq2_sq, fq2_mul_by_xi, fq12_mul, fq12_sq, fq12_mul_by_024_prescaled,
-fq12_cyclotomic_sq and a run of cyclotomic squarings are one kernel each on
-the card (ops/mont_cuda.py, ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
+fq2_mul, fq2_sq, fq2_mul_by_xi, fq12_mul, fq12_sq, fq12_mul_by_024,
+fq12_mul_by_024_prescaled, fq12_cyclotomic_sq and a run of cyclotomic
+squarings are one kernel each on the card (ops/mont_cuda.py,
+ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
 their independent Fq2 products along a new leading axis and send them
 through one fq2_mul call.  Formulas mirror the reference crate
 (src/fields/fq2.rs, fq6.rs, fq12.rs), which pin the golden vectors;
@@ -261,6 +262,14 @@ def fq12_frob(a, power: int):
     # scale all three Fq2 components of x1 by the gamma constant
     x1 = fq2_mul(x1, c12t[power % 12])
     return pack12(x0, x1)
+
+
+def fq12_mul_by_024(a, ell_0, ell_vw, ell_vv):
+    """Sparse line multiply (src/fields/fq12.rs:107-176) by the line
+    (ell_0, ell_vw, ell_vv), each (..., 2, L, B): the three are stacked into
+    one (..., 3, 2, L, B) struct; one kernel."""
+    coeff = torch.stack(mc.broadcast(ell_0, ell_vw, ell_vv), dim=-4)
+    return tc.fq12_mul024(a, coeff, P.Q)
 
 
 def fq12_mul_by_024_prescaled(a, ell_0, scaled):

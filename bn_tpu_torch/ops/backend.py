@@ -1,8 +1,10 @@
 """Which of two kernel paths the pipeline takes where it has a fused kernel.
 
-Counterpart in role of the JAX package's ops/backend.py and of its three
+Counterpart in role of the JAX package's ops/backend.py and of its
 BN_TPU_POW_FUSED / BN_TPU_CYCLO_CHAIN / BN_TPU_FUSED_LADDER /
-BN_TPU_CURVE_KERNELS switches.  Four booleans, all on by default:
+BN_TPU_CURVE_KERNELS / BN_TPU_FUSED_MILLER switches.  Five booleans; the
+first four are on by default, `miller_step` is the first that is off, as
+BN_TPU_FUSED_MILLER is in the JAX package (bn_tpu/ate.py):
 
   pow_fixed    fields/fp.py `pow_fixed` (the Fermat inversions) runs as one
                `pow_fixed` kernel instead of a loop of `mont_mul` launches;
@@ -14,7 +16,11 @@ BN_TPU_CURVE_KERNELS switches.  Four booleans, all on by default:
                Fq2-sized launches;
   curve_kernels  curve.py `add` / `double` run as one `point_add` /
                `point_double` kernel instead of the per-field-op group law
-               (about 70 and 30 launches).
+               (about 70 and 30 launches);
+  miller_step  ate.py `miller_loop` runs each of its 102 steps as one
+               `miller_step` kernel (square, G1 scaling and sparse multiply)
+               instead of one scaling of all steps, then `fq12_sq` and
+               `fq12_mul024_pre` launches a step.  Off by default.
 
 A switch chooses between two kernel paths that return the same limbs.  It
 never chooses a plain version: where a tensor lies decides that, and nothing
@@ -30,8 +36,9 @@ pow_fixed = True
 cyclo_chain = True
 ladder = True
 curve_kernels = True
+miller_step = False
 
-NAMES = ("pow_fixed", "cyclo_chain", "ladder", "curve_kernels")
+NAMES = ("pow_fixed", "cyclo_chain", "ladder", "curve_kernels", "miller_step")
 
 
 @contextlib.contextmanager

@@ -16,11 +16,13 @@ edit of it rebuilds it alone, and nvcc never sees it.
 
 `launch(name, *args)` is the only place a kernel is started: it appends the
 current CUDA stream, calls the C entry, raises unless it returns 0
-(cudaGetLastError), and adds one to COUNTS[name].
+(cudaGetLastError), and adds one to COUNTS[name] (and, for a kernel whose C
+entry picks one of several instantiations, to INSTANCE_COUNTS[name, instance]).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -56,6 +58,10 @@ ENTRIES = {
     "fq12_sq": ("kernel_fq12_sq", _UNARY),
     "fq12_mul024_pre": ("kernel_fq12_mul024_pre", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
     "fq12_cyclo_sq": ("kernel_fq12_cyclo_sq", _UNARY),
+    # f, coeff (ell_0, ell_vw, ell_vv unscaled), out
+    "fq12_mul024": ("kernel_fq12_mul024", _BINARY),
+    # f, coeff, px, py, out; the flag says square first (a doubling step)
+    "miller_step": ("kernel_miller_step", [_P] * 5 + [_LL, _LL, ctypes.c_int] + _MODARGS),
     # exponent words (host), digit count, R mod m words (host)
     "pow_fixed": ("kernel_pow_fixed", [_P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.c_int, ctypes.POINTER(_U32)] + _MODARGS),
     "fq12_cyclo_sq_chain": ("kernel_fq12_cyclo_sq_chain", [_P, _P, _LL, _LL, ctypes.c_int] + _MODARGS),
@@ -74,18 +80,24 @@ KERNELS = tuple(k for k in ENTRIES if k != "imad_probe")
 
 # launches per kernel since the last reset_counts()
 COUNTS = {k: 0 for k in KERNELS}
+# launches per (kernel, instantiation) where the caller names one, e.g.
+# ("miller_step", "square"): the C entry's flag picks a template instance
+INSTANCE_COUNTS = collections.Counter()
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source extra flags.  The Fq12, the precompute-step and the curve kernels call the
-# Montgomery product out of line (see csrc/fq.cuh): tools/torch_kernel_variants.py
-# measures each 1.4 to 2 times faster that way than with 18 to 54 inlined copies.
+# Per-source extra flags.  The Fq12, the Miller-step, the precompute-step and the
+# curve kernels call the Montgomery product out of line (see csrc/fq.cuh):
+# tools/torch_kernel_variants.py measures each 1.4 to 2 times faster that way than
+# with 18 to 54 inlined copies.
 SOURCE_FLAGS = {
     "kernel_fq12_mul": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_sq": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_mul024_pre": ["-DBN_MUL_OUT_OF_LINE"],
+    "kernel_fq12_mul024": ["-DBN_MUL_OUT_OF_LINE"],
+    "kernel_miller_step": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_cyclo_sq": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_cyclo_sq_chain": ["-DBN_MUL_OUT_OF_LINE"],
     "kernels_g2_step": ["-DBN_MUL_OUT_OF_LINE"],
@@ -96,6 +108,7 @@ SOURCE_FLAGS = {
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    INSTANCE_COUNTS.clear()
 
 
 def nvcc() -> str:
@@ -180,8 +193,10 @@ def entry(name: str):
     return fn
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Start kernel `name` on `device`'s current stream; raise if refused."""
+def launch(name: str, device: torch.device, *args, instance: str | None = None) -> None:
+    """Start kernel `name` on `device`'s current stream; raise if refused.
+    `instance` names the instantiation the arguments pick, where there are
+    several, for INSTANCE_COUNTS."""
     fn = entry(name)
     if device.index is None or device.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -192,6 +207,8 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel bn_{name} was not launched: cudaError {rc}")
     if name in COUNTS:
         COUNTS[name] += 1
+        if instance is not None:
+            INSTANCE_COUNTS[name, instance] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -71,13 +71,14 @@ def _check_destination(name: str, dst, shape, ins):
     return dst
 
 
-def launch(name: str, ins, structs, modulus: int, extra=(), out_structs=None, outs=None):
+def launch(name: str, ins, structs, modulus: int, extra=(), out_structs=None, outs=None, instance=None):
     """Check the operands, allocate the output like ins[0] and start kernel
     `name`.  ins[k] has shape (*lead, *structs[k], 16, B) with one `lead`
     for all; the kernel sees rows = prod(lead) elements of batch B.  `extra`
     are the kernel's own arguments between B and the modulus.  A kernel with
     several outputs names their structs in `out_structs` and gets a tuple
     back; `outs` may then name a destination for each (None = allocate).
+    `instance` names the instantiation `extra` picks (build.INSTANCE_COUNTS).
 
     A dense copy made here may be freed as soon as this returns, before the
     kernel has run: PyTorch's allocator hands the memory out again only to
@@ -107,7 +108,7 @@ def launch(name: str, ins, structs, modulus: int, extra=(), out_structs=None, ou
     if rows * B:
         words, inv32 = _mod_args(modulus)
         build.launch(name, results[0].device, *(t.data_ptr() for t in dense), *(t.data_ptr() for t in results),
-                     rows, B, *extra, words, inv32)
+                     rows, B, *extra, words, inv32, instance=instance)
     return results[0] if out_structs is None else tuple(results)
 
 

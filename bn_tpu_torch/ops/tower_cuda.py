@@ -1,10 +1,11 @@
 """Whole Fq12 operations and whole precompute steps: CUDA kernels with their
 plain versions.
 
-Counterpart of the JAX package's ops/tower_pallas.py.  Seven functions —
-fq12_mul, fq12_sq, fq12_mul024_pre, fq12_cyclo_sq, fq12_cyclo_sq_chain,
-double_step, madd_step — each with a wrapper that sends a CPU tensor to the
-plain version and a CUDA tensor to its kernel (csrc/kernel_fq12_*.cu,
+Counterpart of the JAX package's ops/tower_pallas.py.  Nine functions —
+fq12_mul, fq12_sq, fq12_mul024, fq12_mul024_pre, fq12_cyclo_sq,
+fq12_cyclo_sq_chain, miller_step, double_step, madd_step — each with a
+wrapper that sends a CPU tensor to the plain version and a CUDA tensor to its
+kernel (csrc/kernel_fq12_*.cu, csrc/kernel_miller_step.cu,
 csrc/kernels_g2_step.cu), and `<name>_plain`, the same function in plain
 PyTorch.  An Fq12 tensor is (..., 2, 3, 2, 16, B) int32; a point of the
 precompute ladder and a step's line coefficients are (..., 3, 2, 16, B), an
@@ -12,7 +13,9 @@ affine base point (..., 2, 2, 16, B).
 
 The plain versions follow the JAX package's tensor-level formulas: the
 independent Fq2 products of a tower operation are stacked along a new leading
-axis and go through one Montgomery product.
+axis and go through one Montgomery product.  Formulas that several functions
+share (the Fq12 square, the sparse line multiply, the Miller step, the two
+precompute steps) are written once on a field namespace F.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .mont_cuda import (
 )
 
 _FQ12 = (2, 3, 2)
+_COEFF = (3, 2)  # a step's line coefficients (ell_0, ell_vw, ell_vv)
 
 
 def _c6(a, i):
@@ -118,9 +122,8 @@ def fq12_mul(a, b, modulus: int):
 # ---------------------------------------------------------------------------
 
 
-def fq12_sq_plain(a, modulus: int):
+def fq12_square(F, a):
     """2 Fq6 products = 36 base-field products."""
-    F = _plain_field(modulus)
     a0, a1 = _c12(a, 0), _c12(a, 1)
     ab, t = fq6_mul(
         F,
@@ -130,6 +133,10 @@ def fq12_sq_plain(a, modulus: int):
     return _pack12(F.sub(F.sub(t, ab), fq6_nr(F, ab)), F.add(ab, ab))
 
 
+def fq12_sq_plain(a, modulus: int):
+    return fq12_square(_plain_field(modulus), a)
+
+
 def fq12_sq(a, modulus: int):
     if not _on_card(a):
         return fq12_sq_plain(a, modulus)
@@ -137,18 +144,17 @@ def fq12_sq(a, modulus: int):
 
 
 # ---------------------------------------------------------------------------
-# fq12_mul024_pre
+# fq12_mul024, fq12_mul024_pre: the sparse line multiply
 # ---------------------------------------------------------------------------
 
 
-def fq12_mul024_pre_plain(a, ell_0, scaled, modulus: int):
-    """Sparse line multiply, 13 Fq2 products = 39 base-field products.
-    scaled[..., 0, :, :, :] = ell_vw * g1.y, scaled[..., 1, :, :, :] = ell_vv * g1.x."""
-    F = _plain_field(modulus)
+def sparse_mul_024(F, a, x0, x2, x4):
+    """a * ((x0 + x2 v) + x4 v w), 13 Fq2 products = 39 base-field products
+    (src/fields/fq12.rs:107-176).  A line's x2 is ell_vv and x4 is ell_vw,
+    each scaled by the G1 point or not."""
     add, sub, xi = F.add, F.sub, F.fq2_xi
     z0, z1, z2 = (_c6(_c12(a, 0), i) for i in range(3))
     z3, z4, z5 = (_c6(_c12(a, 1), i) for i in range(3))
-    x0, x4, x2 = ell_0, scaled[..., 0, :, :, :], scaled[..., 1, :, :, :]
 
     t2a = add(z0, z4)
     t1a = add(z0, z2)
@@ -171,6 +177,27 @@ def fq12_mul024_pre_plain(a, ell_0, scaled, modulus: int):
     s1 = add(add(add(add(add(z1x2, z5x4), z1x0), z3x4), z3x0), z5x2)
     nz5 = sub(s0t0, s1)
     return _pack12(_pack6(nz0, nz1, nz2), _pack6(nz3, nz4, nz5))
+
+
+def fq12_mul024_plain(a, coeff, modulus: int):
+    """coeff[..., k, :, :, :] = (ell_0, ell_vw, ell_vv)[k], unscaled."""
+    return sparse_mul_024(_plain_field(modulus), a, _c6(coeff, 0), _c6(coeff, 2), _c6(coeff, 1))
+
+
+def fq12_mul024(a, coeff, modulus: int):
+    """a: (..., 2, 3, 2, 16, B); coeff: (..., 3, 2, 16, B), the line as the
+    precompute emits it.  One launch."""
+    lead = torch.broadcast_shapes(a.shape[:-5], coeff.shape[:-4])
+    a = a.expand(lead + a.shape[-5:])
+    coeff = coeff.expand(lead + coeff.shape[-4:])
+    if not _on_card(a, coeff):
+        return fq12_mul024_plain(a, coeff, modulus)
+    return launch("fq12_mul024", (a, coeff), (_FQ12, _COEFF), modulus)
+
+
+def fq12_mul024_pre_plain(a, ell_0, scaled, modulus: int):
+    """scaled[..., 0, :, :, :] = ell_vw * g1.y, scaled[..., 1, :, :, :] = ell_vv * g1.x."""
+    return sparse_mul_024(_plain_field(modulus), a, ell_0, _c6(scaled, 1), _c6(scaled, 0))
 
 
 def fq12_mul024_pre(a, ell_0, scaled, modulus: int):
@@ -357,3 +384,42 @@ def madd_step(r, base, r_out=None, coeffs_out=None):
     if not _on_card(r, base):
         return madd_step_plain(r, base, r_out, coeffs_out)
     return launch("madd_step", (r, base), (_G2, _BASE), P.Q, out_structs=(_G2, _G2), outs=(r_out, coeffs_out))
+
+
+# ---------------------------------------------------------------------------
+# miller_step: one step of the Miller loop
+# ---------------------------------------------------------------------------
+
+
+def miller_step_on(F, f, coeff, px, py, square: bool):
+    """One step of the Miller loop (src/groups/mod.rs:494-509) on the field
+    namespace F: f^2 on a doubling step (`square`), then the line evaluated at
+    the affine G1 point, ell_vw scaled by py and ell_vv by px, multiplied in
+    sparsely.  79 base-field products with the square, 43 without."""
+    if square:
+        f = fq12_square(F, f)
+    vw, vv = F.mul(*broadcast(torch.stack([_c6(coeff, 1), _c6(coeff, 2)]), torch.stack([py, px])[..., None, :, :]))
+    return sparse_mul_024(F, f, _c6(coeff, 0), vv, vw)
+
+
+def miller_step_plain(f, coeff, px, py, square: bool, out=None):
+    val = miller_step_on(_plain_field(P.Q), f, coeff, px, py, square)
+    if out is None:
+        return val
+    return _check_destination("miller_step", out, val.shape, (f, coeff, px, py)).copy_(val)
+
+
+def miller_step(f, coeff, px, py, square: bool, out=None):
+    """f (..., 2, 3, 2, 16, B), the step's line coefficients coeff
+    (..., 3, 2, 16, B) as the precompute emits them (unscaled), the affine G1
+    point px, py (..., 16, B) -> f^2 * line (square=True, a doubling step) or
+    f * line.  `out` names where to write the result (not an operand); without
+    it the result is a new tensor.  One launch."""
+    lead = torch.broadcast_shapes(f.shape[:-5], coeff.shape[:-4], px.shape[:-2], py.shape[:-2])
+    f = f.expand(lead + f.shape[-5:])
+    coeff = coeff.expand(lead + coeff.shape[-4:])
+    px, py = (t.expand(lead + t.shape[-2:]) for t in (px, py))
+    if not _on_card(f, coeff, px, py):
+        return miller_step_plain(f, coeff, px, py, square, out)
+    return launch("miller_step", (f, coeff, px, py), (_FQ12, _COEFF, (), ()), P.Q, extra=(int(square),),
+                  out_structs=(_FQ12,), outs=(out,), instance="square" if square else "no_square")[0]

@@ -9,13 +9,14 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
  2. makes the main path's inputs: 8192 (G1, G2) pairs on the card by scalar
     multiplication of the generators with seeded scalars (two ladders of 256
     `point_double` and 256 `point_add` launches);
- 3. calls each of the seventeen kernel wrappers on CUDA tensors — at a ragged
+ 3. calls each of the nineteen kernel wrappers on CUDA tensors — at a ragged
     batch of 1000 with the edge values 0, 1, m-1 and the Montgomery one, for
     both moduli where the kernel takes one, and at the shape the main path
     gives it at B = 8192 — and holds each result against the kernel's plain
     PyTorch version on the same inputs (`pow_fixed` also against Python's
     pow, with the Fermat exponent and one with a zero digit inside; the
     squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
+    `miller_step` in both instantiations, with and without the square;
     `point_add` and `point_double` for G1 and G2 on points that hold, at both
     ends of the batch, P + inf, inf + Q, inf + inf, P + P, P + (-P) and one
     point under two z, timed for G1 and G2 at B = 8192 and for G1 at 2^20).
@@ -26,10 +27,12 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     probe, and from that rate and the published memory rate computes each
     kernel's bound at the timed shape;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
-    fusion of ops/backend.py on.  Launch counts are set to 0 just before
-    that call and read just after it; each of the pairing's fifteen kernels
-    must have been launched, neither curve kernel, `pow_fixed` 3,
-    `fq12_cyclo_sq_chain` 69, `double_step` 64 and `madd_step` 38 times.
+    switch of ops/backend.py at its default (the four fusions on,
+    `miller_step` off).  Launch counts are set to 0 just before that call and
+    read just after it; each of the pairing's fifteen kernels must have been
+    launched, neither curve kernel nor `fq12_mul024` nor `miller_step`,
+    `pow_fixed` 3, `fq12_cyclo_sq_chain` 69, `double_step` 64 and
+    `madd_step` 38 times.
     Lanes 0, 1, B/2 and B-1 must equal the pure-Python oracle bit for bit,
     the two lanes with an infinite input must give Gt one, and the
     bilinearity pair e(sP, Q) = e(P, sQ) must agree;
@@ -38,6 +41,14 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     of the four fused ones, and return the fused run's lanes bit for bit;
     likewise the precompute alone, whole tensor;
  6. times both paths at B = 8192 in turns, three runs each;
+ 6b. `miller_path`: the main path's inputs with the `miller_step` switch on:
+    exactly 102 `miller_step` launches (64 of them the squaring instance),
+    none of `fq12_sq` or `fq12_mul024_pre`, and all 8192 lanes equal to the
+    main path's result; both configurations timed in turns, the pairing and
+    the Miller loop alone, three runs each; `tower.fq12_mul_by_024` on the
+    run's own line coefficients and points (one `fq12_mul024` launch) equal
+    to `fq12_mul024_pre` on the scaled line and to `miller_step` without the
+    square;
  7. `curve_path`: `curve.mul` for G1 and G2 on 1024 lanes with the
     `curve_kernels` switch on and off: the same limbs, with it on exactly 256
     `point_double` and 256 `point_add` launches a ladder and no `mod_add`;
@@ -55,6 +66,12 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     equal to what the schedule implies — then a small skewed case that forces
     window-local spill rounds, and the MSM at n = 2^12 with `curve_kernels`
     off, equal limbs;
+ 9b. `dist_path`: bn_tpu_torch.parallel.dist in one process, an NCCL group
+    of world size 1 on the card (file rendezvous in a temporary directory):
+    `sharded_pairing_product` of the main path's 8192 pairs equal to
+    `fq12_fold_product` of the main path's result, `sharded_msm` of the
+    first 2^12 points and scalars of `msm_path` equal to the oracle's sum, a
+    CUDA tensor under a gloo group refused; the seconds of each;
 10. prints one JSON line per phase, the card line, the `kernels` line and the
     last line {"ok": true, "device": {...}}.
 
@@ -97,6 +114,9 @@ KERNEL_TABLE = {
     "fq12_cyclo_sq_chain": ("kernel_fq12_cyclo_sq_chain.cu", "bn_tpu/ops/tower_pallas.py:1020", [(2, 3, 2)], 18, 0),
     "double_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1068", [(3, 2)], 28, 0),
     "madd_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1077", [(3, 2), (2, 2)], 37, 0),
+    "fq12_mul024": ("kernel_fq12_mul024.cu", "bn_tpu/ops/tower_pallas.py:1039", [(2, 3, 2), (3, 2)], 39, 0),
+    # products with the square; 43 without (products_of)
+    "miller_step": ("kernel_miller_step.cu", "bn_tpu/ops/tower_pallas.py:1059", [(2, 3, 2), (3, 2), (), ()], 79, 0),
 }
 # the two curve kernels: (TPU kernel, products per point over Fq, over Fq2);
 # an addition's count is the chord's, which is what generic points need (the
@@ -105,7 +125,9 @@ CURVE_KERNELS = {
     "point_add": ("bn_tpu/ops/curve_pallas.py:410", 16, 43),
     "point_double": ("bn_tpu/ops/curve_pallas.py:417", 7, 16),
 }
-PAIRING_KERNELS = tuple(KERNEL_TABLE)  # the fifteen that pairing_batch launches
+MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
+PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
+MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
 LOG2_MSM = 20  # the MSM's size: 2^20 points
 MSM_C = 16  # its window
 B_CURVE_CHECK = 1024  # lanes of the curve.mul comparison, switch on against off
@@ -120,8 +142,10 @@ PTXAS_NAMES = {
     "pow_fixed": "11k_pow_fixed", "fq12_cyclo_sq_chain": "21k_fq12_cyclo_sq_chain",
     "double_step": "13k_double_step", "madd_step": "11k_madd_step",
     "point_add": "11k_point_addI2FqE", "point_double": "14k_point_doubleI2FqE",
+    "fq12_mul024": "13k_fq12_mul024", "miller_step": "13k_miller_stepILb1E",
 }
 PTXAS_NAMES_G2 = {"point_add": "11k_point_addI3Fq2E", "point_double": "14k_point_doubleI3Fq2E"}
+PTXAS_NAMES_NO_SQ = {"miller_step": "13k_miller_stepILb0E"}
 
 
 def statics(name, modulus):
@@ -131,6 +155,8 @@ def statics(name, modulus):
         return [modulus - 2, ZERO_DIGIT_EXPONENT]
     if name == "fq12_cyclo_sq_chain":
         return [1, 2, 5]
+    if name == "miller_step":
+        return [True, False]
     return [None]
 
 
@@ -142,6 +168,8 @@ def products_of(name, static):
         return per * (15 + 5 * (digits - 1))
     if name == "fq12_cyclo_sq_chain":
         return per * static
+    if name == "miller_step" and not static:  # no square: 4 scaling + 39 products
+        return per - 36
     return per
 
 
@@ -212,6 +240,8 @@ def main():
         ptxas[name] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     for name, frag in PTXAS_NAMES_G2.items():
         ptxas[name + "_g2"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
+    for name, frag in PTXAS_NAMES_NO_SQ.items():
+        ptxas[name + "_no_sq"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     emit({"phase": "device", "card": smi, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 2), "sources": build.sources(), "ptxas": ptxas})
@@ -281,13 +311,14 @@ def main():
 
     wrappers = {name: (static_last(getattr(mod, name)), static_last(getattr(mod, name + "_plain")))
                 for mod, names in ((mc, ("mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi")),
-                                   (tc, ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq")))
+                                   (tc, ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12_mul024")))
                 for name in names}
     wrappers["pow_fixed"] = (lambda ins, m, e: mc.pow_fixed(*ins, e, m), lambda ins, m, e: mc.pow_fixed_plain(*ins, e, m))
     wrappers["fq12_cyclo_sq_chain"] = (lambda ins, m, n: tc.fq12_cyclo_sq_chain(*ins, n, m),
                                        lambda ins, m, n: tc.fq12_cyclo_sq_chain_plain(*ins, n, m))
     wrappers["double_step"] = (lambda ins, m, _: tc.double_step(*ins), lambda ins, m, _: tc.double_step_plain(*ins))
     wrappers["madd_step"] = (lambda ins, m, _: tc.madd_step(*ins), lambda ins, m, _: tc.madd_step_plain(*ins))
+    wrappers["miller_step"] = (lambda ins, m, sq: tc.miller_step(*ins, sq), lambda ins, m, sq: tc.miller_step_plain(*ins, sq))
 
     def rand_field(rng, lead, batch, modulus, specials):
         """(*lead, 16, batch) int32 limbs of values in [0, m) on the card."""
@@ -348,12 +379,15 @@ def main():
         if build.COUNTS[name] != calls:
             fail(f"wrapper {name} counted {build.COUNTS[name]} launches for {calls} calls")
         # (b) the main path's shape at B = 8192
-        static = {"pow_fixed": P.Q - 2, "fq12_cyclo_sq_chain": 2}.get(name)
+        static = {"pow_fixed": P.Q - 2, "fq12_cyclo_sq_chain": 2, "miller_step": True}.get(name)
         ins = timed_inputs(name, structs)
         got = kernel(ins, P.Q, static)
         want = plain(ins, P.Q, static)
         torch.cuda.synchronize()
         max_err = max(max_err, compare(name, got, want, "at the main path's shape"))
+        if name == "miller_step":  # the other instance at the same shape
+            max_err = max(max_err, compare(name, kernel(ins, P.Q, False), plain(ins, P.Q, False),
+                                           "at the main path's shape, without the square"))
         ms = device_ms(lambda: kernel(ins, P.Q, static), 50)
         wrapper_ms = timed_ms(lambda: kernel(ins, P.Q, static), 50)  # eager: host time included
         plain_ms = timed_ms(lambda: plain(ins, P.Q, static), 3)
@@ -380,6 +414,17 @@ def main():
         if name == "fq12_cyclo_sq_chain":  # the longest run of the main path too
             row["ms_n5"] = device_ms(lambda: kernel(ins, P.Q, 5), 50)
             row["bound_ms_n5"] = max(bytes_ms, ops_ms(5))
+        if name == "miller_step":  # the instance of the addition steps
+            row.update({
+                "ms_no_sq": device_ms(lambda: kernel(ins, P.Q, False), 50),
+                "wrapper_ms_no_sq": timed_ms(lambda: kernel(ins, P.Q, False), 50),
+                "plain_ms_no_sq": timed_ms(lambda: plain(ins, P.Q, False), 3),
+                "bound_ms_no_sq": max(bytes_ms, ops_ms(False)),
+                "bound_by_no_sq": "bytes" if bytes_ms >= ops_ms(False) else "operations",
+                "products_per_element_no_sq": products_of(name, False),
+                **{k + "_no_sq": (ptxas["miller_step_no_sq"] or {}).get(k)
+                   for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
+            })
         kernel_rows.append(row)
 
     # the two curve kernels, G1 and G2: coordinates are separate tensors, and
@@ -477,8 +522,8 @@ def main():
           "ragged_batch": B_RAGGED, "tolerance": 0})
 
     # ---- phase 4: the main path, every fusion on ------------------------------
-    if not (backend.pow_fixed and backend.cyclo_chain and backend.ladder):
-        fail("the fused path is not the default")
+    if not (backend.pow_fixed and backend.cyclo_chain and backend.ladder) or backend.miller_step:
+        fail("the fused path with the hoisted Miller loop is not the default")
     build.reset_counts()
     out = ate.pairing_batch(p, q)
     torch.cuda.synchronize()
@@ -486,8 +531,8 @@ def main():
     never = [k for k in PAIRING_KERNELS if counts[k] == 0]
     if never:
         fail(f"pairing_batch launched these kernels no time: {never}")
-    if any(counts[k] for k in CURVE_KERNELS):
-        fail(f"pairing_batch launched a curve kernel: {counts}")
+    if any(counts[k] for k in tuple(CURVE_KERNELS) + MILLER_KERNELS):
+        fail(f"pairing_batch launched a curve kernel, fq12_mul024 or miller_step: {counts}")
     if {k: counts[k] for k in FUSED_KERNELS} != FUSED_KERNELS:
         fail(f"the fused path launched {({k: counts[k] for k in FUSED_KERNELS})}, expected {FUSED_KERNELS}")
 
@@ -519,7 +564,7 @@ def main():
     torch.cuda.synchronize()
     counts_unfused = dict(build.COUNTS)
     wrong = [k for k in PAIRING_KERNELS if (counts_unfused[k] != 0) == (k in FUSED_KERNELS)]
-    wrong += [k for k in CURVE_KERNELS if counts_unfused[k]]
+    wrong += [k for k in tuple(CURVE_KERNELS) + MILLER_KERNELS if counts_unfused[k]]
     if wrong:
         fail(f"the unfused path's launches of {wrong} are not as expected: {counts_unfused}")
     if not torch.equal(out_unfused, out[..., :B_UNFUSED]):
@@ -555,6 +600,65 @@ def main():
     emit({"phase": "timing", "batch": B, "pairing_batch_ms": medians, "pairing_batch_ms_runs": times,
           "pairings_per_s": {k: B / (v * 1e-3) for k, v in medians.items()},
           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": smi})
+
+    # ---- phase 6b: the Miller-step configuration on the same inputs ----------
+    build.reset_counts()
+    with backend.fusions(miller_step=True):
+        out_miller = ate.pairing_batch(p, q)
+    torch.cuda.synchronize()
+    counts_miller = dict(build.COUNTS)
+    instances = {inst: build.INSTANCE_COUNTS["miller_step", inst] for inst in MILLER_STEPS}
+    if counts_miller["miller_step"] != 102 or instances != MILLER_STEPS:
+        fail(f"the Miller-step path launched miller_step {counts_miller['miller_step']} times, {instances}")
+    if counts_miller["fq12_sq"] or counts_miller["fq12_mul024_pre"] or counts_miller["fq12_mul024"]:
+        fail(f"the Miller-step path launched the hoisted loop's kernels: {counts_miller}")
+    if not torch.equal(out_miller, out):
+        fail("the Miller-step path differs from the main path's result")
+
+    def event_ms(fn):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return res, t0.elapsed_time(t1)
+
+    pa, qa_full = curve.to_affine(g1s, p), curve.to_affine(g2s, q)
+    coeffs = ate.precompute(qa_full)
+    f_hoisted = ate.miller_loop(coeffs, pa)
+    miller_times = {"hoisted": {"pairing_batch": [], "miller_loop": []},
+                    "miller_step": {"pairing_batch": [], "miller_loop": []}}
+    for _ in range(3):
+        for config, on in (("hoisted", False), ("miller_step", True)):
+            with backend.fusions(miller_step=on):
+                again, ms_pair = event_ms(lambda: ate.pairing_batch(p, q))
+                f_loop, ms_loop = event_ms(lambda: ate.miller_loop(coeffs, pa))
+            if not (torch.equal(again, out) and torch.equal(f_loop, f_hoisted)):
+                fail(f"the {config} configuration is not deterministic, or the two differ")
+            miller_times[config]["pairing_batch"].append(ms_pair)
+            miller_times[config]["miller_loop"].append(ms_loop)
+    # the sparse multiply by an unscaled line, on the run's own coefficients
+    # and points: one fq12_mul024 launch, the same limbs as fq12_mul024_pre on
+    # the scaled line and as miller_step without the square
+    k_line = 3
+    vw = tower.fq2_scale_fq(coeffs[k_line, 1], pa[1])
+    vv = tower.fq2_scale_fq(coeffs[k_line, 2], pa[0])
+    build.reset_counts()
+    by_tower = tower.fq12_mul_by_024(out, coeffs[k_line, 0], coeffs[k_line, 1], coeffs[k_line, 2])
+    torch.cuda.synchronize()
+    counts_line = {k_: v for k_, v in build.COUNTS.items() if v}
+    if counts_line != {"fq12_mul024": 1}:
+        fail(f"tower.fq12_mul_by_024 launched {counts_line}")
+    by_tower_scaled = tower.fq12_mul_by_024(out, coeffs[k_line, 0], vw, vv)
+    pre = tc.fq12_mul024_pre(out, coeffs[k_line, 0], torch.stack([vw, vv]), P.Q)
+    step = tc.miller_step(out, coeffs[k_line], pa[0], pa[1], False)
+    if not (torch.equal(by_tower_scaled, pre) and torch.equal(by_tower_scaled, step)) or torch.equal(by_tower, pre):
+        fail("tower.fq12_mul_by_024 on the scaled line differs from fq12_mul024_pre or miller_step")
+    emit({"phase": "miller_path", "batch": B, "launches": counts_miller, "launches_total": sum(counts_miller.values()),
+          "miller_step_instances": instances, "equals_main_path_lanes": B,
+          "ms_runs": miller_times,
+          "ms": {c_: {k_: statistics.median(v) for k_, v in t_.items()} for c_, t_ in miller_times.items()},
+          "fq12_mul_by_024_step": k_line, "fq12_mul_by_024_launches": counts_line, "card": smi})
 
     def clock(fn):
         """(result, seconds) of fn() with the card's work included."""
@@ -841,14 +945,52 @@ def main():
                      "launches_per_field_op": sum(build.COUNTS.values()), "equal_limbs": True, "oracle_exact": True},
           "card": smi})
 
+    # ---- phase 9b: parallel/dist.py on an NCCL group of one rank ---------------
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from bn_tpu_torch.parallel import dist
+
+    dist_s = {}
+    with tempfile.TemporaryDirectory() as rdv:
+        device = dist.init_group("nccl", f"file://{rdv}/rendezvous", 1, 0)
+        try:
+            product, dist_s["sharded_pairing_product"] = clock(lambda: dist.sharded_pairing_product(p, q))
+            folded, dist_s["fq12_fold_product"] = clock(lambda: dist.fq12_fold_product(out))
+            if tuple(product.shape) != (2, 3, 2, 16, 1) or not torch.equal(product, folded):
+                fail("sharded_pairing_product differs from fq12_fold_product of the main path's result")
+            small_host = curve.from_device(g1s, tuple(t[..., :n_small] for t in (px, py, pz)))
+            small_sum, dist_s["sharded_msm"] = clock(lambda: dist.sharded_msm(small_host, ss[:n_small], device=device))
+            if small_sum[0].device.type != "cuda" or not O.g_eq(O.FQ_OPS, curve.from_device(g1s, small_sum)[0], expect_small):
+                fail("sharded_msm of 2^12 points differs from the oracle")
+            gloo = tdist.new_group(backend="gloo")
+            try:
+                dist.sharded_pairing(p, q, group=gloo)
+                fail("a CUDA tensor under a gloo group was not refused")
+            except ValueError:
+                pass
+        finally:
+            tdist.destroy_process_group()
+    emit({"phase": "dist_path", "backend": "nccl", "world_size": 1, "device": str(device),
+          "pairs": B, "msm_points": n_small, "seconds": dist_s, "product_equals_fold": True,
+          "msm_oracle_exact": True, "gloo_refuses_cuda": True, "card": smi})
+
     for row in kernel_rows:
         if row["name"] in CURVE_KERNELS:  # their path is the MSM; the API's ladders beside it
             row["launches"] = counts_msm[row["name"]]
             row["launches_per_curve_mul"] = curve_path["G1"]["launches_on"][row["name"]]
             row["launches_per_curve_mul_g2"] = curve_path["G2"]["launches_on"][row["name"]]
+        elif row["name"] == "fq12_mul024":  # its path: tower.fq12_mul_by_024
+            row["launches"] = counts_line["fq12_mul024"]
+        elif row["name"] == "miller_step":  # its path: pairing_batch with the switch on
+            row["launches"] = counts_miller["miller_step"]
+            row["launches_square"] = instances["square"]
+            row["launches_no_square"] = instances["no_square"]
         else:
             row["launches"] = counts[row["name"]]
             row["launches_unfused_1024"] = counts_unfused[row["name"]]
+            row["launches_miller_path"] = counts_miller[row["name"]]
     print(smi, flush=True)
     emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,33 @@
+"""One rank of the gloo test of bn_tpu_torch.parallel.dist, started by
+tests/test_torch_dist.py through torch.multiprocessing.spawn.
+
+It imports torch, numpy and the port only, never jax or bn_tpu, so that the
+ranks do not load the JAX package.  Each rank runs on one CPU thread and
+writes what it computed to <out_dir>/rank<r>.npz; the parent compares.
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+from bn_tpu_torch import curve
+from bn_tpu_torch.parallel import dist
+
+
+def run(rank, world, init_file, out_dir, pairs, msm_case):
+    torch.set_num_threads(1)
+    device = dist.init_group("gloo", f"file://{init_file}", world, rank)
+    try:
+        ps, qs = pairs
+        p = curve.to_device(curve.g1_spec(), ps, device)
+        q = curve.to_device(curve.g2_spec(), qs, device)
+        lanes = dist.sharded_pairing(p, q)
+        product = dist.sharded_pairing_product(p, q)
+        points, scalars, c = msm_case
+        msm = dist.sharded_msm(points, scalars, c=c, device=device)
+        np.savez(f"{out_dir}/rank{rank}.npz", lanes=lanes.numpy(), product=product.numpy(),
+                 msm_x=msm[0].numpy(), msm_y=msm[1].numpy(), msm_z=msm[2].numpy(),
+                 jax_loaded="jax" in sys.modules)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -4,7 +4,7 @@ plain PyTorch versions.
 bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
 uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
 in for the kernels (same offsets, a loop instead of a grid).  This checks the
-formulas, the limb packing and the memory layout of all seventeen kernels
+formulas, the limb packing and the memory layout of all nineteen kernels
 without a GPU; that the
 kernels build and launch is what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
@@ -30,7 +30,7 @@ _ROOT = Path(__file__).resolve().parent.parent
 _OPS = [
     "mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi",
     "fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq",
-    "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step",
+    "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -45,6 +45,7 @@ _SPEC = {
     "fq12_sq": (tc.fq12_sq_plain, [(2, 3, 2)]),
     "fq12_mul024_pre": (tc.fq12_mul024_pre_plain, [(2, 3, 2), (2,), (2, 2)]),
     "fq12_cyclo_sq": (tc.fq12_cyclo_sq_plain, [(2, 3, 2)]),
+    "fq12_mul024": (tc.fq12_mul024_plain, [(2, 3, 2), (3, 2)]),
 }
 
 
@@ -68,6 +69,8 @@ def host_lib(tmp_path_factory):
     lib.host_curve.argtypes = [ctypes.c_int, ctypes.c_int, pp, pp, ctypes.c_longlong, ctypes.c_longlong,
                                u32p, ctypes.c_uint32]
     lib.host_curve.restype = ctypes.c_int
+    lib.host_miller_step.argtypes = [ctypes.c_int] + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
+    lib.host_miller_step.restype = ctypes.c_int
     return lib
 
 
@@ -141,6 +144,19 @@ def test_header_madd_step_equals_plain(host_lib):
     got = _run_host(host_lib, "madd_step", [r, base], TP.Q, two_outputs=True)
     want = tc.madd_step_plain(*_tensors([r, base]))
     assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("square", [True, False], ids=["doubling-step", "addition-step"])
+def test_header_miller_step_equals_plain(host_lib, square):
+    """fq12_miller_step at lead 3, batch 5; lanes 0-3 of every operand hold
+    0, 1, q-1 and the Montgomery one (rand_field)."""
+    f, coeff = rand_field(340, (3, 2, 3, 2, 5)), rand_field(341, (3, 3, 2, 5))
+    px, py = rand_field(342, (3, 5)), rand_field(343, (3, 5))
+    arrs = [np.ascontiguousarray(x.astype(np.int32)) for x in (f, coeff, px, py)]
+    out = np.empty_like(arrs[0])
+    words, inv32 = mc._mod_args(TP.Q)
+    assert host_lib.host_miller_step(int(square), *(a.ctypes.data for a in arrs), out.ctypes.data, 3, 5, words, inv32) == 0
+    assert np.array_equal(out, tc.miller_step_plain(*_tensors([f, coeff, px, py]), square).numpy())
 
 
 def _run_host_curve(lib, group, coords):

@@ -175,7 +175,7 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(small):
 
 
 def test_every_kernel_has_a_count_and_a_plain_version():
-    assert len(build.KERNELS) == 17 and {"point_add", "point_double"} <= set(build.COUNTS)
+    assert len(build.KERNELS) == 19 and {"point_add", "point_double"} <= set(build.COUNTS)
     assert build.ENTRIES["point_add"][0] == build.ENTRIES["point_double"][0] == "kernels_curve"
     assert "-DBN_MUL_OUT_OF_LINE" in build.SOURCE_FLAGS["kernels_curve"]
     for name in ("point_add", "point_double"):

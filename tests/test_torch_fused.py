@@ -149,6 +149,10 @@ def test_step_writes_into_the_destinations_it_is_given(name):
 
 def test_fusions_are_on_by_default_and_restored():
     assert (backend.pow_fixed, backend.cyclo_chain, backend.ladder) == (True, True, True)
+    assert backend.curve_kernels is True and backend.miller_step is False  # off, as in the JAX package
+    with backend.fusions(miller_step=True):
+        assert backend.miller_step is True
+    assert backend.miller_step is False
     with backend.fusions(pow_fixed=False, ladder=False):
         assert (backend.pow_fixed, backend.cyclo_chain, backend.ladder) == (False, True, False)
         with backend.fusions(cyclo_chain=False, ladder=True):
@@ -187,8 +191,8 @@ def test_switch_chooses_a_path_not_a_result_and_a_cpu_tensor_launches_nothing(fu
 
 
 def test_every_kernel_has_a_count_and_a_plain_version():
-    new = ("pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step")
-    assert len(build.KERNELS) == 17 and set(new) <= set(build.COUNTS)
+    new = ("pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024", "miller_step")
+    assert len(build.KERNELS) == 19 and set(new) <= set(build.COUNTS)
     for name in build.KERNELS:
         module = next(m for m in (mc, tc, cc) if hasattr(m, name))
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))

@@ -1,7 +1,8 @@
 """The port's pairing pipeline on CPU tensors: against the reference's literal
 G2Precomp vector, against the oracle copy, and — the slice as a whole —
-against the JAX package limb for limb, in both configurations of
-ops/backend.py (fused, the default, and unfused).  Tolerance: none."""
+against the JAX package limb for limb, in three configurations of
+ops/backend.py (fused, the default; unfused; and the fused configuration with
+the Miller-step kernel).  Tolerance: none."""
 
 import random
 
@@ -148,6 +149,20 @@ def four_pairs_out_unfused(jax_four_pairs):
     return out
 
 
+@pytest.fixture(scope="module")
+def four_pairs_out_miller(jax_four_pairs):
+    """The fused configuration with `miller_step` on: one Miller-step kernel
+    per ladder step, on the JAX arrays carried across."""
+    jp, jq, _ = jax_four_pairs
+    tp = convert.from_jax(tuple(np.asarray(x) for x in jp), device=CPU)
+    tq = convert.from_jax(tuple(np.asarray(x) for x in jq), device=CPU)
+    build.reset_counts()
+    with backend.fusions(miller_step=True):
+        out = ate.pairing_batch(tp, tq)
+    assert sum(build.COUNTS.values()) == 0
+    return out
+
+
 def test_reduced_pairing_against_oracle(four_pairs, four_pairs_out):
     ps, qs = four_pairs
     assert T.fq12_from_device(four_pairs_out) == [O.pairing(p, q) for p, q in zip(ps, qs)]
@@ -159,17 +174,20 @@ def test_infinity_lanes_give_gt_one(four_pairs_out):
     assert got[0] != O.FQ12_ONE and got[1] != O.FQ12_ONE
 
 
-def test_slice_equals_jax_package(four_pairs, four_pairs_out, four_pairs_out_unfused, jax_four_pairs):
+def test_slice_equals_jax_package(four_pairs, four_pairs_out, four_pairs_out_unfused, four_pairs_out_miller,
+                                  jax_four_pairs):
     """The whole slice: the same four pairs through jax.jit(pairing_batch)
-    and through the port in both configurations; all (2, 3, 2, 16, 4) limbs
-    equal."""
+    and through the port in all three configurations; all (2, 3, 2, 16, 4)
+    limbs equal."""
     ps, qs = four_pairs
     want = jax_four_pairs[2]
     fused = convert.to_numpy(four_pairs_out)
     unfused = convert.to_numpy(four_pairs_out_unfused)
+    miller = convert.to_numpy(four_pairs_out_miller)
     assert want.shape == (2, 3, 2, 16, 4) and fused.shape == want.shape
     assert np.array_equal(fused, want)
     assert np.array_equal(unfused, want)
+    assert np.array_equal(miller, want)
     assert JO.pairing(ps[0], qs[0]) == T.fq12_from_device(four_pairs_out)[0]
 
 

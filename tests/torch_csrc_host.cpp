@@ -8,7 +8,7 @@
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
   OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
-  OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP
+  OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024
 };
 
 static Fq words_fq(const uint32_t* w) {
@@ -83,8 +83,30 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
         ell_store(out2 + o6, B, co);
         break;
       }
+      case OP_FQ12_MUL024:
+        fq12_store(o + o12, B, fq12_mul_by_line(fq12_load(a + o12, B), ell_load(b + o6, B), m));
+        break;
       default: return 1;
     }
+  }
+  return 0;
+}
+
+// miller_step: f (a), the step's coefficients (c), the G1 point (px, py);
+// square = 1 squares f first, as on a doubling step.
+extern "C" int host_miller_step(int square, const int32_t* f, const int32_t* c, const int32_t* px,
+                                const int32_t* py, int32_t* o, long long rows, long long B, const uint32_t* mod,
+                                uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  for (int64_t t = 0; t < rows * B; t++) {
+    int64_t row = t / B, bb = t % B;
+    int64_t o1 = row * BN_NLIMB * B + bb, o6 = 6 * row * BN_NLIMB * B + bb, o12 = 12 * row * BN_NLIMB * B + bb;
+    Fq12 a = fq12_load(f + o12, B);
+    EllCoeffs co = ell_load(c + o6, B);
+    Fq x = fq_load(px + o1, B), y = fq_load(py + o1, B);
+    fq12_store(o + o12, B, square ? fq12_miller_step<true>(a, co, x, y, m) : fq12_miller_step<false>(a, co, x, y, m));
   }
   return 0;
 }

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare two builds of the port's Fq12-sized, step and curve kernels on the
+"""Compare two builds of the port's Fq12-sized, Miller-step, step and curve kernels on the
 card: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE) against
 the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choice made from these numbers.
@@ -36,6 +36,9 @@ KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like t
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
     "fq12_mul024_pre": ("fq12_mul024_pre", [(2, 3, 2), (2,), (2, 2)], 1, ()),
+    "fq12_mul024": ("fq12_mul024", [(2, 3, 2), (3, 2)], 1, ()),
+    "miller_step square": ("miller_step", [(2, 3, 2), (3, 2), (), ()], 1, (1,)),
+    "miller_step no square": ("miller_step", [(2, 3, 2), (3, 2), (), ()], 1, (0,)),
     "fq12_cyclo_sq": ("fq12_cyclo_sq", [(2, 3, 2)], 1, ()),
     "fq12_cyclo_sq_chain": ("fq12_cyclo_sq_chain", [(2, 3, 2)], 1, (5,)),  # the longest run of the main path
     "double_step": ("double_step", [(3, 2)], 2, tc._step_const_args()),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where one `pairing_batch` of the port spends its time on the card, for both
-configurations of ops/backend.py in one process: fused (the default) and
-unfused (every fusion off).
+"""Where one `pairing_batch` of the port spends its time on the card, for three
+configurations of ops/backend.py in one process: fused (the default), fused
+with the Miller-step kernel (`miller_step` on) and unfused (every fusion off).
 
 Makes B (default 8192) input pairs on the card and, per configuration, runs
 `pairing_batch` once to warm up, five times on the host's clock, then once
@@ -46,7 +46,8 @@ def main():
     g1s, g2s = curve.g1_spec(), curve.g2_spec()
     p = curve.mul(g1s, curve.one(g1s, (B,)), k1)
     q = curve.mul(g2s, curve.one(g2s, (B,)), k2)
-    configurations = {"fused": {}, "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
+    configurations = {"fused": {}, "miller_step": dict(miller_step=True),
+                      "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
     for name, switches in configurations.items():
         with backend.fusions(**switches):
             profile_one(name, B, card, p, q)
