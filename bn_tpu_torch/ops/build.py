@@ -88,10 +88,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Per-source extra flags.  The Fq12, the Miller-step, the precompute-step and the
-# curve kernels call the Montgomery product out of line (see csrc/fq.cuh):
-# tools/torch_kernel_variants.py measures each 1.4 to 2 times faster that way than
-# with 18 to 54 inlined copies.
+# Per-source extra flags.  The Fq12, the Miller-step, the precompute-step and
+# the curve kernels call the Montgomery product out of line (see csrc/fq.cuh):
+# tools/torch_kernel_variants.py measures each 1.4 to 2 times faster that way
+# than with 18 to 54 inlined copies, and kernel_fq12_mul.cu's team, 3 products
+# a thread, 5 % faster.
 SOURCE_FLAGS = {
     "kernel_fq12_mul": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_sq": ["-DBN_MUL_OUT_OF_LINE"],
@@ -145,10 +146,12 @@ def ptxas_log(stem: str) -> str:
     return lib_path(stem).with_suffix(".ptxas.txt").read_text()
 
 
-def compile_start(stem: str, out: Path, flags=None) -> subprocess.Popen:
-    """Start one nvcc for csrc/<stem>.cu -> out; the caller waits."""
+def compile_start(stem: str, out: Path, flags=None, src: Path | None = None) -> subprocess.Popen:
+    """Start one nvcc for csrc/<stem>.cu (or `src`, with csrc/ on the include
+    path and <stem>'s flags) -> out; the caller waits."""
     flags = SOURCE_FLAGS.get(stem, []) if flags is None else flags
-    cmd = [nvcc()] + NVCC_FLAGS + list(flags) + ["-I", str(CSRC), "-o", str(out), str(CSRC / f"{stem}.cu")]
+    src = CSRC / f"{stem}.cu" if src is None else src
+    cmd = [nvcc()] + NVCC_FLAGS + list(flags) + ["-I", str(CSRC), "-o", str(out), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

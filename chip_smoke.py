@@ -25,7 +25,9 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape;
+    kernel's bound at the timed shape; the `fq12_mul` row also gives the
+    block of its launch at that shape (threads, elements) and the loaded
+    kernel's static shared memory (cudaFuncGetAttributes);
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
@@ -80,7 +82,9 @@ plain version, a lane that differs from the oracle — ends the run with a
 non-zero exit code and no result line.
 """
 
+import ctypes
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -411,6 +415,17 @@ def main():
             "spill_load_bytes": (ptxas[name] or {}).get("spill_load_bytes"),
             "stack_bytes": (ptxas[name] or {}).get("stack_bytes"),
         }
+        if name == "fq12_mul":  # the team design: the launch at this shape, from the loaded library
+            dims = (ctypes.c_longlong * 3)()
+            rows, batch = math.prod(ins[0].shape[:-5]), ins[0].shape[-1]
+            if ctypes.CDLL(str(build.lib_path(source[:-3]))).bn_fq12_mul_launch(
+                    ctypes.c_longlong(rows), ctypes.c_longlong(batch), dims) != 0:
+                fail("cudaFuncGetAttributes refused k_fq12_mul")
+            row.update({
+                "block_threads": dims[1],
+                "elements_per_block": math.ceil(rows * batch / dims[0]),
+                "shared_bytes_static": dims[2],
+            })
         if name == "fq12_cyclo_sq_chain":  # the longest run of the main path too
             row["ms_n5"] = device_ms(lambda: kernel(ins, P.Q, 5), 50)
             row["bound_ms_n5"] = max(bytes_ms, ops_ms(5))

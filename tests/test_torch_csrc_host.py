@@ -5,8 +5,10 @@ bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
 uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
 in for the kernels (same offsets, a loop instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
-without a GPU; that the
-kernels build and launch is what chip_smoke.py checks on the card.
+without a GPU, and, for fq12_mul, the team of csrc/fq12_team.cuh as
+kernel_fq12_mul.cu schedules it (blocks of 32 elements, 18 members into a
+scratch laid out as its shared memory, then 6 combines); that the kernels
+build and launch is what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
 
@@ -24,13 +26,14 @@ from bn_tpu_torch.ops import curve_cuda as cc
 from bn_tpu_torch.ops import mont_cuda as mc
 from bn_tpu_torch.ops import tower_cuda as tc
 
-from _torch_inputs import curve_points, rand_field
+from _torch_inputs import SPECIALS_FOR, curve_points, rand_field
 
 _ROOT = Path(__file__).resolve().parent.parent
 _OPS = [
     "mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi",
     "fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq",
     "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024",
+    "fq12_mul_team", "fq12_mul_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -46,6 +49,9 @@ _SPEC = {
     "fq12_mul024_pre": (tc.fq12_mul024_pre_plain, [(2, 3, 2), (2,), (2, 2)]),
     "fq12_cyclo_sq": (tc.fq12_cyclo_sq_plain, [(2, 3, 2)]),
     "fq12_mul024": (tc.fq12_mul024_plain, [(2, 3, 2), (3, 2)]),
+    # kernel_fq12_mul.cu's team, members in order and last to first
+    "fq12_mul_team": (tc.fq12_mul_plain, [(2, 3, 2), (2, 3, 2)]),
+    "fq12_mul_team_reverse": (tc.fq12_mul_plain, [(2, 3, 2), (2, 3, 2)]),
 }
 
 
@@ -157,6 +163,28 @@ def test_header_miller_step_equals_plain(host_lib, square):
     words, inv32 = mc._mod_args(TP.Q)
     assert host_lib.host_miller_step(int(square), *(a.ctypes.data for a in arrs), out.ctypes.data, 3, 5, words, inv32) == 0
     assert np.array_equal(out, tc.miller_step_plain(*_tensors([f, coeff, px, py]), square).numpy())
+
+
+def _with_edge_tail(x, modulus=TP.Q):
+    """x with every coefficient of the flat batch's last four elements set to
+    0, 1, m-1 and the Montgomery one: the lanes of a ragged last block."""
+    x = x.copy()
+    edges = TP.ints_to_limbs(SPECIALS_FOR(modulus)).astype(x.dtype)  # (16, 4)
+    x[-1, ..., -4:] = edges
+    return x
+
+
+@pytest.mark.parametrize("order", ["fq12_mul_team", "fq12_mul_team_reverse"], ids=["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [37, 64])
+def test_header_fq12_mul_team_equals_plain(host_lib, order, batch):
+    """The team at lead 3: with B = 37 the blocks of 32 straddle the row
+    boundaries and the last block is ragged (111 = 3 * 32 + 15); with B = 64
+    a block straddles none.  Edge values lead the first row (rand_field) and
+    end the last."""
+    a = _with_edge_tail(rand_field(350, (3, 2, 3, 2, batch)))
+    b = _with_edge_tail(rand_field(351, (3, 2, 3, 2, batch)))
+    got = _run_host(host_lib, order, [a, b], TP.Q)
+    assert np.array_equal(got, tc.fq12_mul_plain(*_tensors([a, b]), TP.Q).numpy())
 
 
 def _run_host_curve(lib, group, coords):

@@ -1,15 +1,45 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, tower.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).  One loop over
-// the batch stands in for the grid, with the same offsets as the kernels, so
+// fq.cuh, tower.cuh, fq12_team.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).
+// One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
 #include "curve.cuh"
+#include "fq12_team.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
   OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
-  OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024
+  OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024,
+  OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE
 };
+
+// kernel_fq12_mul.cu's team, one block after another: the 18 members of a
+// block (each over the block's 32 lanes) write their Fq2 products into a
+// scratch laid out as the kernel's shared memory, [member][coefficient][word]
+// [lane]; then, as after the barrier, the 6 combines read it and store.  The
+// scratch starts every block filled with a pattern that is no field element,
+// and `reverse` runs the members last to first: the result does not change
+// only if no member reads what another writes.  A lane past the end clamps
+// its element and skips the store, as in the kernel.
+static void fq12_mul_team(const int32_t* a, const int32_t* b, int32_t* o, int64_t rows, int64_t B, const Mod& m,
+                          bool reverse) {
+  uint32_t prods[BN_TEAM_MEMBERS * 2 * BN_NW * BN_TEAM_LANES];
+  const int64_t n = rows * B;
+  for (int64_t first = 0; first < n; first += BN_TEAM_LANES) {
+    for (uint32_t& x : prods) x = 0xFFFFFFFFu;
+    for (int i = 0; i < BN_TEAM_MEMBERS; i++) {
+      int w = reverse ? BN_TEAM_MEMBERS - 1 - i : i;
+      for (int lane = 0; lane < BN_TEAM_LANES; lane++) {
+        int64_t off = fq12_offset(first + lane < n ? first + lane : n - 1, B);
+        fq2_tab_store(prods + lane, BN_TEAM_LANES, w, fq12_mul_member(w, a + off, b + off, B, m));
+      }
+    }
+    for (int c = 0; c < BN_TEAM_COMBINES; c++)
+      for (int lane = 0; lane < BN_TEAM_LANES && first + lane < n; lane++)
+        fq2_store(o + fq12_offset(first + lane, B) + (int64_t)c * 2 * BN_NLIMB * B, B,
+                  fq12_mul_combine(c, prods + lane, BN_TEAM_LANES, m));
+  }
+}
 
 static Fq words_fq(const uint32_t* w) {
   Fq r;
@@ -27,6 +57,10 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   Mod m;
   for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
   m.inv = inv;
+  if (op == OP_FQ12_MUL_TEAM || op == OP_FQ12_MUL_TEAM_REVERSE) {
+    fq12_mul_team(a, b, o, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE);
+    return 0;
+  }
   for (int64_t t = 0; t < rows * B; t++) {
     int64_t row = t / B, bb = t % B;
     int64_t o1 = row * BN_NLIMB * B + bb, o2 = 2 * row * BN_NLIMB * B + bb,

@@ -1,37 +1,95 @@
 #!/usr/bin/env python3
-"""Compare two builds of the port's Fq12-sized, Miller-step, step and curve kernels on the
-card: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE) against
-the same product inlined at each of its 7 to 54 uses.  ops/build.py's
-SOURCE_FLAGS holds the choice made from these numbers.
+"""Compare builds of the port's Fq12-sized, Miller-step, step and curve kernels on
+the card.  For fq12_mul: the team design of csrc/kernel_fq12_mul.cu (18 warps
+on 32 elements, the product out of line, as the package builds it) against
+the one-thread design it replaced (THREAD_SOURCE below, the product out of
+line) and against the team with the product inlined.
+For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
+against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
+SOURCE_FLAGS holds the choices made from these numbers.
 
 For each kernel and each variant it prints one JSON line:
-nvcc's build time, what `ptxas -v` reports for the entry (registers, stack,
-spills), the kernel's time at B = 8192 (CUDA events, 50 launches after a
-warm-up, variants in turns: call, inline, inline, call), and whether the two
-variants return the same limbs.  Run from the repository root on a machine
-with a GPU and nvcc:  python3 tools/torch_kernel_variants.py
+nvcc's build time, what `ptxas -v` reports for the source's entries (registers,
+stack, spills, static shared memory), the kernel's time at each batch (CUDA
+events, 50 launches after a warm-up, variants in turns: a, b, b, a, or a, b, c,
+c, b, a), and whether every variant returns the first one's limbs.
+With --pairing (fq12_mul picked) it then times `ate.pairing_batch` at B = 8192
+with the package's fq12_mul swapped for each build of it, in turns (team,
+thread, thread, team), in the three configurations of
+tools/torch_pairing_profile.py, and prints one JSON line per build and
+configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
+(the host's pace included), the device-busy time of one call under
+torch.profiler (the sum of its kernels' times), and CUDA events around 3
+replays of one call captured as a CUDA graph (the card's pace: no Python
+between launches); and whether every result equals the team's.  Run from the repository root on a
+machine with a GPU and nvcc:
+    python3 tools/torch_kernel_variants.py [kernel ...] [--batch B ...] [--pairing]
+where the optional labels (e.g. fq12_mul) pick kernels, all by default, and
+--batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
+32 is one block of the fq12_mul team alone on the card; 132 * 32 = 4224 one
+block on each multiprocessor.
 """
 
+import argparse
 import ctypes
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from bn_tpu_torch import ate, curve  # noqa: E402
 from bn_tpu_torch import params as P  # noqa: E402
-from bn_tpu_torch.ops import build  # noqa: E402
+from bn_tpu_torch.fields import fp  # noqa: E402
+from bn_tpu_torch.ops import backend, build  # noqa: E402
 from bn_tpu_torch.ops import mont_cuda as mc  # noqa: E402
 from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
-B = 8192
+B = 8192  # the main path's batch, and the number of distinct values the inputs draw from
 VARIANTS = {"call": ["-DBN_MUL_OUT_OF_LINE"], "inline": []}
+# kernels whose variants are others than VARIANTS
+OWN_VARIANTS = {
+    "fq12_mul": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_inline": [],
+    },
+}
+# variants built from another source than csrc/<stem>.cu
+THREAD_SOURCE = r"""
+// fq12_mul as one thread per element, 64 threads a block: the design of
+// csrc/kernel_fq12_mul.cu before its team, the baseline the team is timed
+// against, with the same entry and kernel name.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
+           int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 12 * BN_NLIMB * B + (t % B);
+  fq12_store(o + off, B, fq12_mul(fq12_load(a + off, B), fq12_load(b + off, B), m));
+}
+
+extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows, long long B,
+                           const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_mul<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+OWN_SOURCES = {("fq12_mul", "thread"): THREAD_SOURCE}
+PAIRING_VARIANTS = ("team", "thread")  # fq12_mul's builds that --pairing swaps in
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
@@ -57,15 +115,30 @@ def main():
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("kernels", nargs="*", default=list(KERNELS))
+    ap.add_argument("--batch", type=int, nargs="+", default=[B])
+    ap.add_argument("--pairing", action="store_true", help="time pairing_batch with each fq12_mul build")
+    args = ap.parse_args()
+    picked = args.kernels
+    unknown = [k for k in picked if k not in KERNELS]
+    if unknown:
+        sys.exit(f"unknown kernels {unknown}; known: {list(KERNELS)}")
     out_dir = build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     # start every compile at once (one per source and variant), then wait;
     # time each by its own clock
     procs = {}
-    for stem in sorted({build.ENTRIES[spec[0]][0] for spec in KERNELS.values()}):
-        for var, flags in VARIANTS.items():
-            so = out_dir / f"lib{stem}.{var}.so"
-            procs[stem, var] = (build.compile_start(stem, so, flags), so, time.perf_counter())
+    for label in picked:
+        stem = build.ENTRIES[KERNELS[label][0]][0]
+        for var, flags in OWN_VARIANTS.get(label, VARIANTS).items():
+            if (stem, var) not in procs:
+                so = out_dir / f"lib{stem}.{var}.so"
+                src = None
+                if (label, var) in OWN_SOURCES:
+                    src = out_dir / f"{stem}.{var}.cu"
+                    src.write_text(OWN_SOURCES[label, var])
+                procs[stem, var] = (build.compile_start(stem, so, flags, src), so, time.perf_counter())
     libs, logs, secs = {}, {}, {}
     for key, (proc, so, t0) in procs.items():
         logs[key], _ = proc.communicate()
@@ -81,20 +154,22 @@ def main():
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    for label, (name, structs, n_out, own) in KERNELS.items():
+    for label, batch in [(label, batch) for label in picked for batch in args.batch]:
+        name, structs, n_out, own = KERNELS[label]
         stem = build.ENTRIES[name][0]
+        variants = list(OWN_VARIANTS.get(label, VARIANTS))
         ins = []
         for st in structs:
-            idx = torch.from_numpy(rng.integers(0, B, size=tuple(st) + (B,))).to(dev)
-            ins.append(torch.movedim(pool[:, idx.reshape(-1)].reshape((16,) + tuple(st) + (B,)), 0, -2).contiguous())
-        outs, ms = {}, {v: [] for v in VARIANTS}
+            idx = torch.from_numpy(rng.integers(0, B, size=tuple(st) + (batch,))).to(dev)
+            ins.append(torch.movedim(pool[:, idx.reshape(-1)].reshape((16,) + tuple(st) + (batch,)), 0, -2).contiguous())
+        outs, ms = {}, {v: [] for v in variants}
 
         def run(var):
             fn = getattr(libs[stem, var], f"bn_{name}")
             fn.argtypes = list(build.ENTRIES[name][1]) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             o = torch.stack([torch.empty_like(ins[0]) for _ in range(n_out)])
-            args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, B, *own, words, inv32, stream]
+            args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, batch, *own, words, inv32, stream]
             assert fn(*args) == 0
             torch.cuda.synchronize()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -106,17 +181,96 @@ def main():
             outs[var] = o
             ms[var].append(t0.elapsed_time(t1) / 50)
 
-        for var in ("call", "inline", "inline", "call"):
+        for var in variants + variants[::-1]:
             run(var)
-        for var in VARIANTS:
+        for var in variants:
             log = logs[stem, var]  # of the whole source: every entry in it
-            regs = re.findall(r"Used (\d+) registers", log)
+            used = [line for line in log.splitlines() if re.search(r"Used \d+ registers", line)]
+            regs = [re.search(r"Used (\d+) registers", line).group(1) for line in used]
+            smem = [m.group(1) if (m := re.search(r"(\d+) bytes smem", line)) else 0 for line in used]  # absent: 0
             spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
             print(json.dumps({
-                "kernel": label, "variant": var, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
-                "registers": [int(r) for r in regs],
+                "kernel": label, "variant": var, "batch": batch, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
+                "registers": [int(r) for r in regs], "shared_bytes_static": [int(x) for x in smem],
                 "stack_spillstore_spillload_bytes": [[int(x) for x in s] for s in spills],
-                "same_result": bool(torch.equal(outs["call"], outs["inline"])), "card": card,
+                "same_result": bool(torch.equal(outs[var], outs[variants[0]])), "card": card,
+            }), flush=True)
+
+    if args.pairing and "fq12_mul" in picked:
+        time_pairing({var: libs[build.ENTRIES["fq12_mul"][0], var] for var in PAIRING_VARIANTS}, card)
+
+
+def time_pairing(fq12_libs, card):
+    """pairing_batch at B = 8192 with build.launch's fq12_mul taken from each
+    library of fq12_libs in turns; the inputs of tools/torch_pairing_profile.py."""
+    rng = np.random.default_rng(42)
+    k1, k2 = (fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
+              for _ in range(2))
+    g1s, g2s = curve.g1_spec(), curve.g2_spec()
+    p = curve.mul(g1s, curve.one(g1s, (B,)), k1)
+    q = curve.mul(g2s, curve.one(g2s, (B,)), k2)
+    configurations = {"fused": {}, "miller_step": dict(miller_step=True),
+                      "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
+    package_entry = build.entry
+    entries = {}
+    for var, lib in fq12_libs.items():
+        fn = lib.bn_fq12_mul
+        fn.argtypes = list(build.ENTRIES["fq12_mul"][1]) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[var] = fn
+    ms = {(var, c, how): [] for var in entries for c in configurations for how in ("eager", "busy", "graph")}
+    launches, same, first = {}, {}, {}
+
+    def events_ms(fn):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    def check(var, c, out):
+        first.setdefault(c, out)
+        same[var, c] = same.get((var, c), True) and bool(torch.equal(out, first[c]))
+
+    try:
+        for var in list(entries) + list(entries)[::-1]:
+            build.entry = lambda name, fn=entries[var]: fn if name == "fq12_mul" else package_entry(name)
+            for c, switches in configurations.items():
+                with backend.fusions(**switches):
+                    ate.pairing_batch(p, q)  # warm-up
+                    torch.cuda.synchronize()
+                    for _ in range(3):
+                        build.reset_counts()
+                        out, t = events_ms(lambda: ate.pairing_batch(p, q))
+                        ms[var, c, "eager"].append(t)
+                        launches[var, c] = dict(build.COUNTS)
+                    check(var, c, out)
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        ate.pairing_batch(p, q)
+                        torch.cuda.synchronize()
+                    ms[var, c, "busy"].append(sum(
+                        getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+                        for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3)
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        out = ate.pairing_batch(p, q)
+                    for _ in range(3):
+                        ms[var, c, "graph"].append(events_ms(graph.replay)[1])
+                    check(var, c, out)
+                    del graph, out
+    finally:
+        build.entry = package_entry
+    for var in entries:
+        for c in configurations:
+            runs = {how: ms[var, c, how] for how in ("eager", "busy", "graph")}
+            print(json.dumps({
+                "pairing_batch": c, "fq12_mul": var, "batch": B,
+                "ms_eager": statistics.median(runs["eager"]), "ms_eager_runs": runs["eager"],
+                "device_busy_ms_runs": runs["busy"],
+                "ms_graph_replay": statistics.median(runs["graph"]), "ms_graph_replay_runs": runs["graph"],
+                "launches": sum(launches[var, c].values()), "fq12_mul_launches": launches[var, c]["fq12_mul"],
+                "same_result_as_team": same[var, c], "card": card,
             }), flush=True)
 
 
