@@ -25,9 +25,11 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape; the `fq12_mul` row also gives the
-    block of its launch at that shape (threads, elements) and the loaded
-    kernel's static shared memory (cudaFuncGetAttributes);
+    kernel's bound at the timed shape; the rows of the two team kernels,
+    `fq12_mul` and the chain, also give the block of their launch at that
+    shape (threads, elements) and the loaded kernel's static shared memory
+    (cudaFuncGetAttributes), and the chain's row its time at n = 1 and 5
+    beside n = 2;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
@@ -129,6 +131,8 @@ CURVE_KERNELS = {
     "point_add": ("bn_tpu/ops/curve_pallas.py:410", 16, 43),
     "point_double": ("bn_tpu/ops/curve_pallas.py:417", 7, 16),
 }
+# kernels whose C source also has bn_<name>_launch: the block of a launch
+TEAM_KERNELS = ("fq12_mul", "fq12_cyclo_sq_chain")
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
 MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
@@ -415,20 +419,21 @@ def main():
             "spill_load_bytes": (ptxas[name] or {}).get("spill_load_bytes"),
             "stack_bytes": (ptxas[name] or {}).get("stack_bytes"),
         }
-        if name == "fq12_mul":  # the team design: the launch at this shape, from the loaded library
+        if name in TEAM_KERNELS:  # the launch at this shape, from the loaded library
             dims = (ctypes.c_longlong * 3)()
             rows, batch = math.prod(ins[0].shape[:-5]), ins[0].shape[-1]
-            if ctypes.CDLL(str(build.lib_path(source[:-3]))).bn_fq12_mul_launch(
+            if getattr(ctypes.CDLL(str(build.lib_path(source[:-3]))), f"bn_{name}_launch")(
                     ctypes.c_longlong(rows), ctypes.c_longlong(batch), dims) != 0:
-                fail("cudaFuncGetAttributes refused k_fq12_mul")
+                fail(f"cudaFuncGetAttributes refused k_{name}")
             row.update({
                 "block_threads": dims[1],
                 "elements_per_block": math.ceil(rows * batch / dims[0]),
                 "shared_bytes_static": dims[2],
             })
-        if name == "fq12_cyclo_sq_chain":  # the longest run of the main path too
-            row["ms_n5"] = device_ms(lambda: kernel(ins, P.Q, 5), 50)
-            row["bound_ms_n5"] = max(bytes_ms, ops_ms(5))
+        if name == "fq12_cyclo_sq_chain":  # the shortest and the longest run of the main path too
+            for n in (1, 5):
+                row[f"ms_n{n}"] = device_ms(lambda n=n: kernel(ins, P.Q, n), 50)
+                row[f"bound_ms_n{n}"] = max(bytes_ms, ops_ms(n))
         if name == "miller_step":  # the instance of the addition steps
             row.update({
                 "ms_no_sq": device_ms(lambda: kernel(ins, P.Q, False), 50),

@@ -7,12 +7,17 @@ in for the kernels (same offsets, a loop instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
 without a GPU, and, for fq12_mul, the team of csrc/fq12_team.cuh as
 kernel_fq12_mul.cu schedules it (blocks of 32 elements, 18 members into a
-scratch laid out as its shared memory, then 6 combines); that the kernels
-build and launch is what chip_smoke.py checks on the card.
+scratch laid out as its shared memory, then 6 combines), and for the
+squaring chain the team of csrc/fq12_cyclo_team.cuh as
+kernel_fq12_cyclo_sq_chain.cu schedules it (the element in a state laid out
+as its shared memory for the whole run, each squaring 6 members into a
+scratch, then 6 combines in place); that the kernels build and launch is
+what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,7 +38,7 @@ _OPS = [
     "mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi",
     "fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq",
     "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024",
-    "fq12_mul_team", "fq12_mul_team_reverse",
+    "fq12_mul_team", "fq12_mul_team_reverse", "fq12_cyclo_team", "fq12_cyclo_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -185,6 +190,28 @@ def test_header_fq12_mul_team_equals_plain(host_lib, order, batch):
     b = _with_edge_tail(rand_field(351, (3, 2, 3, 2, batch)))
     got = _run_host(host_lib, order, [a, b], TP.Q)
     assert np.array_equal(got, tc.fq12_mul_plain(*_tensors([a, b]), TP.Q).numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _cyclo_chain_case(n, batch):
+    """The chain's operand at lead 3 and batch `batch`, edge values at both
+    ends of the flat batch, and the plain version's result after n squarings."""
+    a = _with_edge_tail(rand_field(360, (3, 2, 3, 2, batch)))
+    return a, tc.fq12_cyclo_sq_chain_plain(*_tensors([a]), n, TP.Q).numpy()
+
+
+@pytest.mark.parametrize("order", ["fq12_cyclo_team", "fq12_cyclo_team_reverse"], ids=["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [5, 37, 64])
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_header_cyclo_chain_team_equals_plain(host_lib, n, batch, order):
+    """The chain's team at lead 3: with B = 5 one ragged block holds all 15
+    elements; with B = 37 the blocks of 32 straddle the row boundaries and the
+    last is ragged (111 = 3 * 32 + 15); with B = 64 a block straddles none.
+    Members and combines in order and last to first, the scratch poisoned
+    before every squaring."""
+    a, want = _cyclo_chain_case(n, batch)
+    got = _run_host(host_lib, order, [a], TP.Q, n=n)
+    assert np.array_equal(got, want)
 
 
 def _run_host_curve(lib, group, coords):

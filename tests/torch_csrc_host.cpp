@@ -1,16 +1,17 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, tower.cuh, fq12_team.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).
+// fq.cuh, tower.cuh, fq12_team.cuh, fq12_cyclo_team.cuh, curve.cuh are plain C++ when no CUDA
+// compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
 #include "curve.cuh"
-#include "fq12_team.cuh"
+#include "fq12_cyclo_team.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
   OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
   OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024,
-  OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE
+  OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE, OP_FQ12_CYCLO_TEAM, OP_FQ12_CYCLO_TEAM_REVERSE
 };
 
 // kernel_fq12_mul.cu's team, one block after another: the 18 members of a
@@ -41,6 +42,49 @@ static void fq12_mul_team(const int32_t* a, const int32_t* b, int32_t* o, int64_
   }
 }
 
+// kernel_fq12_cyclo_sq_chain.cu's team, one block after another: the 6 slots
+// of the block's 32 elements are loaded into a state laid out as the kernel's
+// shared memory, [slot][coefficient][word][lane]; each of the n squarings, the
+// 6 members (each over the 32 lanes) write their Fq2 products into a scratch
+// laid out the same way, then, as after the barrier, the 6 combines rewrite
+// the state's slots in place; after n squarings the slots are stored.  The
+// state starts every block, and the scratch every squaring, filled with a
+// pattern that is no field element, and `reverse` runs the members and the
+// combines last to first: the result does not change only if no member reads
+// another's product and no combine reads a slot another combine writes.  A
+// lane past the end clamps its element and skips the store, as in the kernel.
+static void fq12_cyclo_team(const int32_t* a, int32_t* o, int64_t rows, int64_t B, int n, const Mod& m,
+                            bool reverse) {
+  uint32_t state[BN_CYCLO_SLOTS * 2 * BN_NW * BN_TEAM_LANES];
+  uint32_t prods[BN_CYCLO_MEMBERS * 2 * BN_NW * BN_TEAM_LANES];
+  const int64_t total = rows * B;
+  auto slot = [&](int64_t e, int k) { return fq12_offset(e, B) + (int64_t)k * 2 * BN_NLIMB * B; };
+  for (int64_t first = 0; first < total; first += BN_TEAM_LANES) {
+    for (uint32_t& x : state) x = 0xFFFFFFFFu;
+    for (int k = 0; k < BN_CYCLO_SLOTS; k++)
+      for (int lane = 0; lane < BN_TEAM_LANES; lane++)
+        fq2_tab_store(state + lane, BN_TEAM_LANES, k,
+                      fq2_load(a + slot(first + lane < total ? first + lane : total - 1, k), B));
+    for (int i = 0; i < n; i++) {
+      for (uint32_t& x : prods) x = 0xFFFFFFFFu;
+      for (int j = 0; j < BN_CYCLO_MEMBERS; j++) {
+        int w = reverse ? BN_CYCLO_MEMBERS - 1 - j : j;
+        for (int lane = 0; lane < BN_TEAM_LANES; lane++)
+          fq2_tab_store(prods + lane, BN_TEAM_LANES, w, fq12_cyclo_member(w, state + lane, BN_TEAM_LANES, m));
+      }
+      for (int j = 0; j < BN_CYCLO_SLOTS; j++) {
+        int c = reverse ? BN_CYCLO_SLOTS - 1 - j : j;
+        for (int lane = 0; lane < BN_TEAM_LANES; lane++)
+          fq2_tab_store(state + lane, BN_TEAM_LANES, c,
+                        fq12_cyclo_combine(c, prods + lane, state + lane, BN_TEAM_LANES, m));
+      }
+    }
+    for (int k = 0; k < BN_CYCLO_SLOTS; k++)
+      for (int lane = 0; lane < BN_TEAM_LANES && first + lane < total; lane++)
+        fq2_store(o + slot(first + lane, k), B, fq2_tab_load(state + lane, BN_TEAM_LANES, k));
+  }
+}
+
 static Fq words_fq(const uint32_t* w) {
   Fq r;
   for (int i = 0; i < BN_NW; i++) r.w[i] = w[i];
@@ -59,6 +103,10 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   m.inv = inv;
   if (op == OP_FQ12_MUL_TEAM || op == OP_FQ12_MUL_TEAM_REVERSE) {
     fq12_mul_team(a, b, o, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_FQ12_CYCLO_TEAM || op == OP_FQ12_CYCLO_TEAM_REVERSE) {
+    fq12_cyclo_team(a, o, rows, B, n, m, op == OP_FQ12_CYCLO_TEAM_REVERSE);
     return 0;
   }
   for (int64_t t = 0; t < rows * B; t++) {

@@ -1,5 +1,8 @@
 #!/usr/bin/env python3
-"""Where a block of csrc/kernel_fq12_mul.cu's team spends its time on the card.
+"""Where a block of csrc/kernel_fq12_mul.cu's team, or of
+csrc/kernel_fq12_cyclo_sq_chain.cu's, spends its time on the card.
+
+fq12_mul (the default):
 
 Builds, with the package's flags for kernel_fq12_mul.cu, a kernel that runs
 the package's team block (fq12_mul_team_block in csrc/fq12_team.cuh, the body
@@ -18,10 +21,28 @@ and of the block from its first warp's start to its last warp's end; with
 the SM clock nvidia-smi reads right after, and the limbs' equality with the
 package's fq12_mul.  A batch of 32 is one block alone on the card.
 
+--kernel fq12_cyclo_sq_chain: the same for the chain's team block
+(fq12_cyclo_team_block in csrc/fq12_cyclo_team.cuh, the body of
+k_fq12_cyclo_sq_chain, under the same __launch_bounds__) at n squarings
+(--n, 5 by default, the main path's longest run): lane 0 of every warp writes
+clock64 to device memory at each of the block's marks.  For each batch and
+instance it prints the kernel's time, the load phase, and for each squaring,
+over all blocks, the median cycles of the member phase (slowest and mean
+warp), of the wait at the first barrier, of the combine (slowest warp) and
+of the wait at the second barrier; the store, the block's cycles, and the
+limbs' equality with the package's fq12_cyclo_sq_chain.  Thread 0 also reads
+its block's multiprocessor (%smid) and the global timer at the block's start
+and end, so the line also gives the median block in µs, the SM clock during
+the run (cycles over nanoseconds), the kernel's span, and for each
+multiprocessor the most blocks it ran at once.  The second instance adds
+each member's two operands instead of multiplying them.
+
 Run from the repository root on a machine with a GPU and nvcc:
-    python3 tools/torch_fq12_team_phases.py [B ...]      (default: 32 8192)
+    python3 tools/torch_fq12_team_phases.py [B ...] [--kernel fq12_mul|fq12_cyclo_sq_chain] [--n N]
+                                                          (default: 32 8192, fq12_mul, n = 5)
 """
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -40,7 +61,7 @@ from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
 SOURCE = r"""
 #include "launch.cuh"
-#include "fq12_team.cuh"
+#include "fq12_cyclo_team.cuh"
 
 // the member's loads and pre-sums, with an addition in place of its product
 struct SumMember {
@@ -82,8 +103,62 @@ extern "C" int bn_phases(int products, const void* a, const void* b, void* o, lo
         (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv), (long long*)clocks);
   return (int)cudaGetLastError();
 }
+
+// the chain's member with an addition in place of its product
+struct CycloSumMember {
+  __device__ __forceinline__ Fq2 operator()(int w, const uint32_t* state, int stride, const Mod& m) const {
+    Fq2 x, y;
+    fq12_cyclo_operands(w, state, stride, m, x, y);
+    return fq2_add(x, y, m);
+  }
+};
+
+// lane 0 of each warp writes the clock to its warp's row of 3 + 4n marks;
+// thread 0 also writes the block's multiprocessor and the global timer (ns)
+// at the first and the last mark to the block's row of `info`
+struct RowClockMarks {
+  long long* row;
+  long long* info;
+  int last;
+  __device__ __forceinline__ void operator()(int s) {
+    __syncwarp();  // the warp's last lane done
+    if (threadIdx.x % BN_TEAM_LANES == 0) row[s] = clock64();
+    if (threadIdx.x == 0 && (s == 0 || s == last)) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      info[s == 0 ? 1 : 2] = (long long)ns;
+      if (s == 0) {
+        unsigned sm;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        info[0] = sm;
+      }
+    }
+  }
+};
+
+template <class Member>
+__global__ void __launch_bounds__(BN_CYCLO_BLOCK, BN_CYCLO_MIN_BLOCKS)
+k_chain_phases(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, int n, Mod m,
+               long long* __restrict__ clocks, long long* __restrict__ info) {
+  RowClockMarks marks{clocks + ((int64_t)blockIdx.x * BN_CYCLO_MEMBERS + threadIdx.x / BN_TEAM_LANES) * (3 + 4 * n),
+                      info + (int64_t)blockIdx.x * 3, 2 + 4 * n};
+  fq12_cyclo_team_block(a, o, rows, B, n, m, Member(), marks);
+}
+
+extern "C" int bn_chain_phases(int products, const void* a, void* o, long long rows, long long B, int n,
+                               const uint32_t* mod, uint32_t inv, void* clocks, void* info, void* stream) {
+  unsigned grid = bn_grid(rows * B, BN_TEAM_LANES);
+  if (products)
+    k_chain_phases<Fq12CycloMember><<<grid, BN_CYCLO_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)a, (int32_t*)o, rows, B, n, bn_make_mod(mod, inv), (long long*)clocks, (long long*)info);
+  else
+    k_chain_phases<CycloSumMember><<<grid, BN_CYCLO_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)a, (int32_t*)o, rows, B, n, bn_make_mod(mod, inv), (long long*)clocks, (long long*)info);
+  return (int)cudaGetLastError();
+}
 """
 MEMBERS, LANES = 18, 32
+CHAIN_MEMBERS = 6
 
 
 def smi(query):
@@ -94,52 +169,143 @@ def smi(query):
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    batches = [int(x) for x in sys.argv[1:]] or [32, 8192]
-    dev = torch.device("cuda")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("batches", type=int, nargs="*", default=[32, 8192])
+    ap.add_argument("--kernel", choices=["fq12_mul", "fq12_cyclo_sq_chain"], default="fq12_mul")
+    ap.add_argument("--n", type=int, default=5, help="squarings of the chain")
+    args = ap.parse_args()
     card = smi("name,power.limit")
     out_dir = build.BUILD / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, so = out_dir / "fq12_team_phases.cu", out_dir / "libfq12_team_phases.so"
     src.write_text(SOURCE)
-    proc = build.compile_start("kernel_fq12_mul", so, src=src)
+    # both kernels' sources build with the same flags (ops/build.py SOURCE_FLAGS)
+    proc = build.compile_start(build.ENTRIES[args.kernel][0], so, src=src)
     log, _ = proc.communicate()
     if proc.returncode != 0:
         sys.exit(f"nvcc failed:\n{log}")
-    fn = ctypes.CDLL(str(so)).bn_phases
+    lib = ctypes.CDLL(str(so))
+    if args.kernel == "fq12_cyclo_sq_chain":
+        chain_phases(lib, args.batches, args.n, card)
+    else:
+        mul_phases(lib, args.batches, card)
+
+
+def timed_runs(launch, clocks, ms, products):
+    """One launch, then 50 timed by CUDA events; the clocks of the last."""
+    if launch(products) != 0:
+        sys.exit("the phase kernel was not launched")
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(50):
+        launch(products)
+    t1.record()
+    torch.cuda.synchronize()
+    ms[products].append(t0.elapsed_time(t1) / 50)
+    return clocks.cpu().numpy().copy()
+
+
+def random_fq12(rng, count, batch, dev):
+    """`count` (2, 3, 2, 16, batch) tensors of random field elements."""
+    vals = [int.from_bytes(rng.bytes(40), "big") % P.Q for _ in range(count * 12 * batch)]
+    limbs = P.ints_to_limbs(vals).astype(np.int32).reshape(16, count, 2, 3, 2, batch)
+    return [torch.from_numpy(np.ascontiguousarray(np.moveaxis(limbs[:, i], 0, -2))).to(dev) for i in range(count)]
+
+
+def blocks_at_once(info):
+    """For each multiprocessor, the most blocks whose [start, end] on the
+    global timer overlap; returns {that count: multiprocessors}."""
+    most = {}
+    for sm in np.unique(info[:, 0]):
+        spans = info[info[:, 0] == sm, 1:]
+        events = sorted([(t, 1) for t in spans[:, 0]] + [(t, -1) for t in spans[:, 1]], key=lambda e: (e[0], e[1]))
+        now = top = 0
+        for _, d in events:
+            now += d
+            top = max(top, now)
+        most[top] = most.get(top, 0) + 1
+    return {str(k): v for k, v in sorted(most.items())}
+
+
+def chain_phases(lib, batches, n, card):
+    fn = lib.bn_chain_phases
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    words, inv32 = mc._mod_args(P.Q)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    med = lambda x: [float(v) for v in np.median(x, axis=0)]  # noqa: E731  over blocks
+    for batch in batches:
+        (a,) = random_fq12(rng, 1, batch, dev)
+        o = torch.empty_like(a)
+        blocks = (batch + LANES - 1) // LANES
+        clocks = torch.zeros((blocks, CHAIN_MEMBERS, 3 + 4 * n), dtype=torch.int64, device=dev)
+        info = torch.zeros((blocks, 3), dtype=torch.int64, device=dev)  # multiprocessor, start ns, end ns
+        ms = {True: [], False: []}
+
+        def launch(products):
+            return fn(int(products), a.data_ptr(), o.data_ptr(), 1, batch, n, words, inv32, clocks.data_ptr(),
+                      info.data_ptr(), stream)
+
+        res, infos = {}, {}
+        for products in (True, False, False, True):
+            res[products] = timed_runs(launch, clocks, ms, products)
+            infos[products] = info.cpu().numpy().copy()
+            if products:
+                same = bool(torch.equal(o, tc.fq12_cyclo_sq_chain(a, n, P.Q)))
+        sm_clock = smi("clocks.sm")
+        for products in (True, False):
+            c, nfo = res[products], infos[products]  # (blocks, warps, 3 + 4n), (blocks, 3)
+            sq = [4 * i + np.arange(1, 6) for i in range(n)]  # each squaring's marks: start, member, barrier, combine, barrier
+            member = np.stack([c[:, :, s[1]] - c[:, :, s[0]] for s in sq], axis=1)  # (blocks, n, warps)
+            print(json.dumps({
+                "kernel": "fq12_cyclo_sq_chain", "batch": batch, "n": n,
+                "instance": "products" if products else "loads and pre-sums only",
+                "ms": ms[products], "blocks": blocks,
+                "load_cycles": float(np.median(c[:, :, 1].max(axis=1) - c[:, :, 0].min(axis=1))),
+                "member_cycles_slowest_warp": med(member.max(axis=2)),
+                "member_cycles_mean_warp": med(member.mean(axis=2)),
+                "barrier1_wait_cycles": med(np.stack([c[:, :, s[2]].max(axis=1) - c[:, :, s[1]].max(axis=1) for s in sq], axis=1)),
+                "combine_cycles_slowest_warp": med(np.stack([(c[:, :, s[3]] - c[:, :, s[2]]).max(axis=1) for s in sq], axis=1)),
+                "barrier2_wait_cycles": med(np.stack([c[:, :, s[4]].max(axis=1) - c[:, :, s[3]].max(axis=1) for s in sq], axis=1)),
+                "store_cycles": float(np.median((c[:, :, -1] - c[:, :, -2]).max(axis=1))),
+                "block_cycles": float(np.median(c[:, :, -1].max(axis=1) - c[:, :, 0].min(axis=1))),
+                "block_us": float(np.median(nfo[:, 2] - nfo[:, 1])) / 1e3,
+                "sm_clock_ghz_in_run": float(np.median((c[:, 0, -1] - c[:, 0, 0]) / (nfo[:, 2] - nfo[:, 1]))),
+                "kernel_span_us": float(nfo[:, 2].max() - nfo[:, 1].min()) / 1e3,
+                "multiprocessors_used": int(len(np.unique(nfo[:, 0]))),
+                "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
+                "sm_clock_after": sm_clock, "equals_fq12_cyclo_sq_chain": same if products else None, "card": card,
+            }), flush=True)
+
+
+def mul_phases(lib, batches, card):
+    fn = lib.bn_phases
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(11)
-
+    dev = torch.device("cuda")
     for batch in batches:
-        vals = [int.from_bytes(rng.bytes(40), "big") % P.Q for _ in range(2 * 12 * batch)]
-        limbs = P.ints_to_limbs(vals).astype(np.int32).reshape(16, 2, 2, 3, 2, batch)
-        a, b = (torch.from_numpy(np.ascontiguousarray(np.moveaxis(limbs[:, i], 0, -2))).to(dev) for i in range(2))
+        a, b = random_fq12(rng, 2, batch, dev)
         o = torch.empty_like(a)
         blocks = (batch + LANES - 1) // LANES
         clocks = torch.zeros((blocks, MEMBERS, 4), dtype=torch.int64, device=dev)
         ms = {True: [], False: []}
 
-        def run(products):
-            args = [int(products), a.data_ptr(), b.data_ptr(), o.data_ptr(), 1, batch, words, inv32,
-                    clocks.data_ptr(), stream]
-            if fn(*args) != 0:
-                sys.exit("the phase kernel was not launched")
-            torch.cuda.synchronize()
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(50):
-                fn(*args)
-            t1.record()
-            torch.cuda.synchronize()
-            ms[products].append(t0.elapsed_time(t1) / 50)
-            return clocks.cpu().numpy().copy()  # of the last launch
+        def launch(products):
+            return fn(int(products), a.data_ptr(), b.data_ptr(), o.data_ptr(), 1, batch, words, inv32,
+                      clocks.data_ptr(), stream)
 
         res = {}
         for products in (True, False, False, True):
-            res[products] = run(products)
+            res[products] = timed_runs(launch, clocks, ms, products)
             if products:
                 same = bool(torch.equal(o, tc.fq12_mul(a, b, P.Q)))
         sm_clock = smi("clocks.sm")

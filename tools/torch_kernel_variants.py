@@ -3,7 +3,12 @@
 the card.  For fq12_mul: the team design of csrc/kernel_fq12_mul.cu (18 warps
 on 32 elements, the product out of line, as the package builds it) against
 the one-thread design it replaced (THREAD_SOURCE below, the product out of
-line) and against the team with the product inlined.
+line) and against the team with the product inlined.  For
+fq12_cyclo_sq_chain, likewise: the team of csrc/kernel_fq12_cyclo_sq_chain.cu
+(6 warps on 32 elements, __launch_bounds__ for 2 blocks a multiprocessor)
+against the one-thread design (CHAIN_THREAD_SOURCE), the team with registers
+for 3 blocks a multiprocessor, and the team with the product inlined; at
+n = 1, 2 and 5 squarings.
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -13,8 +18,9 @@ nvcc's build time, what `ptxas -v` reports for the source's entries (registers,
 stack, spills, static shared memory), the kernel's time at each batch (CUDA
 events, 50 launches after a warm-up, variants in turns: a, b, b, a, or a, b, c,
 c, b, a), and whether every variant returns the first one's limbs.
-With --pairing (fq12_mul picked) it then times `ate.pairing_batch` at B = 8192
-with the package's fq12_mul swapped for each build of it, in turns (team,
+With --pairing it then times `ate.pairing_batch` at B = 8192 with the
+package's fq12_mul, or fq12_cyclo_sq_chain, swapped for each build of it
+(whichever of the two are picked, one after the other), in turns (team,
 thread, thread, team), in the three configurations of
 tools/torch_pairing_profile.py, and prints one JSON line per build and
 configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
@@ -26,8 +32,8 @@ machine with a GPU and nvcc:
     python3 tools/torch_kernel_variants.py [kernel ...] [--batch B ...] [--pairing]
 where the optional labels (e.g. fq12_mul) pick kernels, all by default, and
 --batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
-32 is one block of the fq12_mul team alone on the card; 132 * 32 = 4224 one
-block on each multiprocessor.
+32 is one block of a team alone on the card; 132 * 32 = 4224 one block on
+each multiprocessor, 8448 two.
 """
 
 import argparse
@@ -63,6 +69,12 @@ OWN_VARIANTS = {
         "thread": ["-DBN_MUL_OUT_OF_LINE"],
         "team_inline": [],
     },
+    "fq12_cyclo_sq_chain": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_inline": [],
+        "team_3_blocks": ["-DBN_MUL_OUT_OF_LINE", "-DBN_CYCLO_MIN_BLOCKS=3"],
+    },
 }
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
@@ -88,8 +100,36 @@ extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows
   return (int)cudaGetLastError();
 }
 """
-OWN_SOURCES = {("fq12_mul", "thread"): THREAD_SOURCE}
-PAIRING_VARIANTS = ("team", "thread")  # fq12_mul's builds that --pairing swaps in
+CHAIN_THREAD_SOURCE = r"""
+// fq12_cyclo_sq_chain as one thread per element, 64 threads a block: the
+// design of csrc/kernel_fq12_cyclo_sq_chain.cu before its team, the baseline
+// the team is timed against, with the same entry and kernel name.  One thread
+// loads its element once, squares it n times in registers (fq12_cyclo_sq in
+// tower.cuh) and stores it once.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_fq12_cyclo_sq_chain(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B,
+                      int n, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 12 * BN_NLIMB * B + (t % B);
+  Fq12 v = fq12_load(a + off, B);
+#pragma unroll 1
+  for (int i = 0; i < n; i++) v = fq12_cyclo_sq(v, m);
+  fq12_store(o + off, B, v);
+}
+
+extern "C" int bn_fq12_cyclo_sq_chain(const void* a, void* o, long long rows, long long B, int n,
+                                      const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_cyclo_sq_chain<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)o, rows, B, n, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+OWN_SOURCES = {("fq12_mul", "thread"): THREAD_SOURCE, ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE}
+PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
@@ -98,7 +138,7 @@ KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like t
     "miller_step square": ("miller_step", [(2, 3, 2), (3, 2), (), ()], 1, (1,)),
     "miller_step no square": ("miller_step", [(2, 3, 2), (3, 2), (), ()], 1, (0,)),
     "fq12_cyclo_sq": ("fq12_cyclo_sq", [(2, 3, 2)], 1, ()),
-    "fq12_cyclo_sq_chain": ("fq12_cyclo_sq_chain", [(2, 3, 2)], 1, (5,)),  # the longest run of the main path
+    "fq12_cyclo_sq_chain": ("fq12_cyclo_sq_chain", [(2, 3, 2)], 1, (5,)),
     "double_step": ("double_step", [(3, 2)], 2, tc._step_const_args()),
     "madd_step": ("madd_step", [(3, 2), (2, 2)], 2, ()),
     # coordinates are random field elements, generic lanes: no doubling, no infinity
@@ -107,6 +147,11 @@ KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like t
     "point_double G1": ("point_double", [()] * 3, 3, (0,)),
     "point_double G2": ("point_double", [(2,)] * 3, 3, (1,)),
 }
+
+
+# labels timed with several sets of own arguments, in place of KERNELS': the
+# chain at the shortest run of the checks, of the main path, and the longest
+OWN_ARG_RUNS = {"fq12_cyclo_sq_chain": [(1,), (2,), (5,)]}
 
 
 def main():
@@ -118,7 +163,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("kernels", nargs="*", default=list(KERNELS))
     ap.add_argument("--batch", type=int, nargs="+", default=[B])
-    ap.add_argument("--pairing", action="store_true", help="time pairing_batch with each fq12_mul build")
+    ap.add_argument("--pairing", action="store_true",
+                    help="time pairing_batch with each build of fq12_mul or fq12_cyclo_sq_chain (those picked)")
     args = ap.parse_args()
     picked = args.kernels
     unknown = [k for k in picked if k not in KERNELS]
@@ -154,8 +200,10 @@ def main():
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
 
-    for label, batch in [(label, batch) for label in picked for batch in args.batch]:
-        name, structs, n_out, own = KERNELS[label]
+    runs = [(label, batch, own) for label in picked for batch in args.batch
+            for own in OWN_ARG_RUNS.get(label, [KERNELS[label][3]])]
+    for label, batch, own in runs:
+        name, structs, n_out, _ = KERNELS[label]
         stem = build.ENTRIES[name][0]
         variants = list(OWN_VARIANTS.get(label, VARIANTS))
         ins = []
@@ -190,19 +238,20 @@ def main():
             smem = [m.group(1) if (m := re.search(r"(\d+) bytes smem", line)) else 0 for line in used]  # absent: 0
             spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
             print(json.dumps({
-                "kernel": label, "variant": var, "batch": batch, "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
+                "kernel": label, "variant": var, "batch": batch, "own_args": list(own), "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
                 "registers": [int(r) for r in regs], "shared_bytes_static": [int(x) for x in smem],
                 "stack_spillstore_spillload_bytes": [[int(x) for x in s] for s in spills],
                 "same_result": bool(torch.equal(outs[var], outs[variants[0]])), "card": card,
             }), flush=True)
 
-    if args.pairing and "fq12_mul" in picked:
-        time_pairing({var: libs[build.ENTRIES["fq12_mul"][0], var] for var in PAIRING_VARIANTS}, card)
+    if args.pairing:
+        for kernel in (k for k in OWN_VARIANTS if k in picked):
+            time_pairing(kernel, {var: libs[build.ENTRIES[kernel][0], var] for var in PAIRING_VARIANTS}, card)
 
 
-def time_pairing(fq12_libs, card):
-    """pairing_batch at B = 8192 with build.launch's fq12_mul taken from each
-    library of fq12_libs in turns; the inputs of tools/torch_pairing_profile.py."""
+def time_pairing(kernel, kernel_libs, card):
+    """pairing_batch at B = 8192 with build.launch's `kernel` taken from each
+    library of kernel_libs in turns; the inputs of tools/torch_pairing_profile.py."""
     rng = np.random.default_rng(42)
     k1, k2 = (fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
               for _ in range(2))
@@ -213,9 +262,9 @@ def time_pairing(fq12_libs, card):
                       "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
     package_entry = build.entry
     entries = {}
-    for var, lib in fq12_libs.items():
-        fn = lib.bn_fq12_mul
-        fn.argtypes = list(build.ENTRIES["fq12_mul"][1]) + [ctypes.c_void_p]
+    for var, lib in kernel_libs.items():
+        fn = getattr(lib, f"bn_{kernel}")
+        fn.argtypes = list(build.ENTRIES[kernel][1]) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         entries[var] = fn
     ms = {(var, c, how): [] for var in entries for c in configurations for how in ("eager", "busy", "graph")}
@@ -235,7 +284,7 @@ def time_pairing(fq12_libs, card):
 
     try:
         for var in list(entries) + list(entries)[::-1]:
-            build.entry = lambda name, fn=entries[var]: fn if name == "fq12_mul" else package_entry(name)
+            build.entry = lambda name, fn=entries[var]: fn if name == kernel else package_entry(name)
             for c, switches in configurations.items():
                 with backend.fusions(**switches):
                     ate.pairing_batch(p, q)  # warm-up
@@ -265,11 +314,11 @@ def time_pairing(fq12_libs, card):
         for c in configurations:
             runs = {how: ms[var, c, how] for how in ("eager", "busy", "graph")}
             print(json.dumps({
-                "pairing_batch": c, "fq12_mul": var, "batch": B,
+                "pairing_batch": c, "swapped": kernel, "build": var, "batch": B,
                 "ms_eager": statistics.median(runs["eager"]), "ms_eager_runs": runs["eager"],
                 "device_busy_ms_runs": runs["busy"],
                 "ms_graph_replay": statistics.median(runs["graph"]), "ms_graph_replay_runs": runs["graph"],
-                "launches": sum(launches[var, c].values()), "fq12_mul_launches": launches[var, c]["fq12_mul"],
+                "launches": sum(launches[var, c].values()), "swapped_launches": launches[var, c][kernel],
                 "same_result_as_team": same[var, c], "card": card,
             }), flush=True)
 
