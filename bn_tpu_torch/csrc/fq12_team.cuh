@@ -1,7 +1,20 @@
-// The Fq12 product split over a team of 18 members, for kernels that give one
-// Fq12 element to several warps instead of one thread.
+// What the team kernels share: the layouts they read and write, written
+// here once, the Fq12 product split over a team of 18 members, and the
+// block's skeleton that runs any such team (fq12_team_block, at the end).
 //
-// Member order.  The Fq12 Karatsuba (src/fields/fq12.rs:295-307) takes three
+// Layouts.  An Fq12 element is (rows, 2, 3, 2, 16, B), leading axes folded
+// into rows: element e is row e / B, batch index e % B, and its coefficient
+// c{i}.c{s} (Fq2 coefficient k = 3i + s of the six in memory order) starts at
+// fq12_offset(e, B) + k * 2 * 16 * B.  The sparse line of fq12_mul024_pre is
+// ell0 (rows, 2, 16, B) and scaled (rows, 2, 2, 16, B), with
+//   x0 = ell0,  x2 = scaled[1] = ell_vv * g1.x,  x4 = scaled[0] = ell_vw * g1.y
+// (fq12_line_x; tower.cuh's fq12_mul_by_024 names them x0, x2, x4).
+// The team's lanes: a block works on 32 consecutive elements (across rows),
+// lane l of every warp on element blockIdx.x * 32 + l, and warp w is member
+// w.  Its scratch is [member][coefficient][word][lane] (fq2_tab_store with
+// stride 32: neighbouring lanes on neighbouring banks).
+//
+// Member order of the product.  The Fq12 Karatsuba (src/fields/fq12.rs:295-307) takes three
 // Fq6 products, and each Fq6 Karatsuba (fq6_mul in tower.cuh) six Fq2
 // products; once the pre-sums are taken the 18 Fq2 products are independent.
 // Member w, 0 <= w < 18, computes Fq2 product j = w % 6 of Fq6 product
@@ -10,16 +23,15 @@
 // and, on that pair of Fq6 operands x, y,
 //   j = 0: (x0, y0)  1: (x1, y1)  2: (x2, y2)
 //       3: (x1 + x2, y1 + y2)  4: (x0 + x1, y0 + y1)  5: (x0 + x2, y0 + y2).
-// The team's scratch holds the 18 products, word j of product w at
-// prods[(w*2*BN_NW + j) * stride] (the layout of fq_tab_store in fq.cuh, two
-// base-field entries per product).  After a barrier, combine c, 0 <= c < 6,
-// reads them and returns output coefficient out.c{c/3}.c{c%3}.
+// The scratch holds product w at entries 2w, 2w + 1 of fq_tab_store's layout.
+// After a barrier, combine c, 0 <= c < 6, reads them and returns output
+// coefficient out.c{c/3}.c{c%3}.
 //
 // Every sum and difference is taken modulo q and every product reduced at
-// once, so each intermediate is the canonical element: the result is that of
-// tower.cuh's fq12_mul, bit for bit, whatever the order the members run in.
-// Plain C++ like the other headers, so the host tests run the same code; only
-// the block's skeleton at the end, fq12_mul_team_block, is device code.
+// once, so each intermediate is the canonical element: a team's result is
+// that of tower.cuh's one-thread formula, bit for bit, whatever the order the
+// members and the combines run in.  Plain C++ like the other headers, so the
+// host tests run the same code; only the block's skeleton is device code.
 #pragma once
 
 #include "tower.cuh"
@@ -146,47 +158,62 @@ BN_DEV Fq2 fq12_mul_combine(int c, const uint32_t* prods, int stride, const Mod&
 // Element e of a (rows, 2, 3, 2, 16, B) tensor: row e / B, batch index e % B.
 BN_DEV int64_t fq12_offset(int64_t e, int64_t B) { return (e / B) * 12 * BN_NLIMB * B + (e % B); }
 
-#ifdef __CUDACC__
-// The block of a team kernel: lane l of warp w works on element
-// blockIdx.x * BN_TEAM_LANES + l as member w, the 18 products go to shared
-// memory laid out [member][coefficient][word][lane] (neighbouring lanes on
-// neighbouring banks), and after one barrier warps 0-5 each combine one output
-// Fq2 and store it.  A lane past the end clamps its element to the last one,
-// computes with the others and skips the store: no thread leaves before the
-// barrier.  `member` computes a member's Fq2 (Fq12MulMember in the package's
-// kernel); `marks(i)` is called at the start (0), after the member's store (1),
-// after the barrier (2) and at the end (3): it does nothing in the package's
-// kernel, and tools/torch_fq12_team_phases.py reads the clock there.
+// x0, x2 or x4 (i = 0, 1, 2) of element e's sparse line: ell0, scaled[1], scaled[0].
+BN_DEV Fq2 fq12_line_x(const int32_t* ell0, const int32_t* scaled, int64_t e, int64_t B, int i) {
+  const int64_t row = e / B, b = e % B;
+  if (i == 0) return fq2_load(ell0 + row * 2 * BN_NLIMB * B + b, B);
+  return fq2_load(scaled + row * 4 * BN_NLIMB * B + b + (i == 1 ? 2 * BN_NLIMB * B : 0), B);
+}
+
+// The product's member and combine as the skeleton calls them: the member
+// gets the element's index and loads its own operands.
 struct Fq12MulMember {
-  __device__ __forceinline__ Fq2 operator()(int w, const int32_t* a, const int32_t* b, int64_t stride,
-                                            const Mod& m) const {
-    return fq12_mul_member(w, a, b, stride, m);
+  const int32_t* a;
+  const int32_t* b;
+  BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    const int64_t off = fq12_offset(e, B);
+    return fq12_mul_member(w, a + off, b + off, B, m);
   }
 };
 
+struct Fq12MulCombine {
+  BN_DEV Fq2 operator()(int c, const uint32_t* prods, int stride, const Mod& m) const {
+    return fq12_mul_combine(c, prods, stride, m);
+  }
+};
+
+#ifdef __CUDACC__
 struct TeamNoMarks {
   __device__ __forceinline__ void operator()(int) {}
 };
 
-template <class Member, class Marks>
-__device__ __forceinline__ void fq12_mul_team_block(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                                                    int32_t* __restrict__ o, int64_t rows, int64_t B, const Mod& m,
-                                                    const Member& member, Marks& marks) {
-  __shared__ uint32_t prods[BN_TEAM_MEMBERS][2][BN_NW][BN_TEAM_LANES];
+// The block of a team kernel of MEMBERS warps (kernel_fq12_mul.cu,
+// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu), in the lane layout above:
+// member(w, e, B, m) computes member w's Fq2 product for element e into the
+// scratch, and after one barrier warps 0-5 each store
+// combine(c, scratch, 32, m) as output coefficient c of element e.  A lane past
+// the end clamps its element to the last one, computes with the others and
+// skips the store: no thread leaves before the barrier.  `marks(i)` is called
+// at the start (0), after the member's store (1), after the barrier (2) and
+// at the end (3): it does nothing in the package's kernels, and
+// tools/torch_fq12_team_phases.py reads the clock there.
+template <int MEMBERS, class Member, class Combine, class Marks>
+__device__ __forceinline__ void fq12_team_block(int32_t* __restrict__ o, int64_t rows, int64_t B, const Mod& m,
+                                                const Member& member, const Combine& combine, Marks& marks) {
+  __shared__ uint32_t prods[MEMBERS][2][BN_NW][BN_TEAM_LANES];
   marks(0);
   const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
   const int64_t n = rows * B;
   int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
   const bool live = e < n;
   if (!live) e = n - 1;
-  const int64_t off = fq12_offset(e, B);
   uint32_t* mine = &prods[0][0][0][0] + lane;  // stride BN_TEAM_LANES: the layout of fq2_tab_store
-  fq2_tab_store(mine, BN_TEAM_LANES, w, member(w, a + off, b + off, B, m));
+  fq2_tab_store(mine, BN_TEAM_LANES, w, member(w, e, B, m));
   marks(1);
   __syncthreads();
   marks(2);
   if (w < BN_TEAM_COMBINES && live)
-    fq2_store(o + off + (int64_t)w * 2 * BN_NLIMB * B, B, fq12_mul_combine(w, mine, BN_TEAM_LANES, m));
+    fq2_store(o + fq12_offset(e, B) + (int64_t)w * 2 * BN_NLIMB * B, B, combine(w, mine, BN_TEAM_LANES, m));
   marks(3);
 }
 #endif

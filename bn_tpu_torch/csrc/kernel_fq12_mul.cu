@@ -9,14 +9,13 @@
 // and reduces lazily; here every product is reduced at once, which gives the
 // same canonical result.
 //
-// The design: a team of warps for each group of 32 elements.  A block is 18
-// warps of 32 lanes, 576 threads; lane l of every warp works on element
-// blockIdx.x * 32 + l, and warp w is member w of csrc/fq12_team.cuh: it loads
-// the coefficients its Fq2 product needs (one 128-byte line per limb and
-// warp; the coefficients several members read come again from L1) and does 3
+// The design: a team of 18 warps for each group of 32 elements, 576 threads a
+// block; warp w is member w of csrc/fq12_team.cuh: it loads the coefficients
+// its Fq2 product needs (one 128-byte line per limb and warp; the
+// coefficients several members read come again from L1) and does 3
 // Montgomery products.  The 18 products go to 36,864 bytes of shared memory;
 // after one barrier warps 0-5 each combine one output Fq2 and store it
-// (fq12_mul_team_block in fq12_team.cuh, the block's skeleton).
+// (fq12_team_block in fq12_team.cuh, the skeleton of every team kernel).
 //
 // What that does about the latency: one thread per element ran 54 dependent
 // products with 288 live words, spilled 2 KB, and at B = 8192 gave two warps
@@ -35,7 +34,7 @@ __global__ void __launch_bounds__(BN_FQ12_MUL_BLOCK, 1)
 k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
            int64_t rows, int64_t B, Mod m) {
   TeamNoMarks marks;
-  fq12_mul_team_block(a, b, o, rows, B, m, Fq12MulMember(), marks);
+  fq12_team_block<BN_TEAM_MEMBERS>(o, rows, B, m, Fq12MulMember{a, b}, Fq12MulCombine(), marks);
 }
 
 extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows, long long B,

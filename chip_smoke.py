@@ -25,11 +25,12 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape; the rows of the two team kernels,
-    `fq12_mul` and the chain, also give the block of their launch at that
-    shape (threads, elements) and the loaded kernel's static shared memory
-    (cudaFuncGetAttributes), and the chain's row its time at n = 1 and 5
-    beside n = 2;
+    kernel's bound at the timed shape; the four team kernels, `fq12_mul`,
+    `fq12_sq`, `fq12_mul024_pre` and the chain, are also held at B = 37,
+    lead 3 (blocks of 32 that straddle the rows), and their rows give the
+    block of their launch at the timed shape (threads, elements) and the
+    loaded kernel's static shared memory (cudaFuncGetAttributes); the
+    chain's row its time at n = 1 and 5 beside n = 2;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
@@ -131,8 +132,10 @@ CURVE_KERNELS = {
     "point_add": ("bn_tpu/ops/curve_pallas.py:410", 16, 43),
     "point_double": ("bn_tpu/ops/curve_pallas.py:417", 7, 16),
 }
-# kernels whose C source also has bn_<name>_launch: the block of a launch
-TEAM_KERNELS = ("fq12_mul", "fq12_cyclo_sq_chain")
+# kernels whose C source also has bn_<name>_launch: the block of a launch.
+# These give 32 elements to a block, so they are also held at B_STRADDLE.
+TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq_chain")
+B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
 MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
@@ -371,13 +374,14 @@ def main():
         #     kernel takes one
         moduli = (P.Q, P.R_SCALAR) if name in ("mont_mul", "mod_add", "mod_sub", "mod_neg", "pow_fixed") else (P.Q,)
         unit_structs = [tuple(st[1:]) if name == "fq2_mul" else tuple(st) for st in structs]
-        for modulus in moduli:
+        batches = (B_RAGGED, B_STRADDLE) if name in TEAM_KERNELS else (B_RAGGED,)
+        for modulus, batch in ((mod_, b_) for mod_ in moduli for b_ in batches):
             for static in statics(name, modulus):
-                ins = [rand_field(rng, (3,) + st, B_RAGGED, modulus, specials=True) for st in unit_structs]
+                ins = [rand_field(rng, (3,) + st, batch, modulus, specials=True) for st in unit_structs]
                 got = kernel(ins, modulus, static)
                 torch.cuda.synchronize()
                 calls += 1
-                where = f"at B={B_RAGGED}, modulus {modulus:#x}, static argument {static}"
+                where = f"at B={batch}, modulus {modulus:#x}, static argument {static}"
                 max_err = max(max_err, compare(name, got, plain(ins, modulus, static), where))
                 if name == "pow_fixed":  # lanes 0, 1, m-1 (and the next) against Python's pow
                     lanes = P.limbs_to_ints(got[0, :, :4].cpu().numpy())
@@ -539,7 +543,7 @@ def main():
                **{k + "_g2": (ptxas[name + "_g2"] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")}}
         kernel_rows.append(row)
     emit({"phase": "kernels", "compared": [r["name"] for r in kernel_rows], "all_equal": True,
-          "ragged_batch": B_RAGGED, "tolerance": 0})
+          "ragged_batch": B_RAGGED, "team_straddle_batch": B_STRADDLE, "tolerance": 0})
 
     # ---- phase 4: the main path, every fusion on ------------------------------
     if not (backend.pow_fixed and backend.cyclo_chain and backend.ladder) or backend.miller_step:

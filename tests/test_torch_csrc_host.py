@@ -5,10 +5,11 @@ bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
 uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
 in for the kernels (same offsets, a loop instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
-without a GPU, and, for fq12_mul, the team of csrc/fq12_team.cuh as
-kernel_fq12_mul.cu schedules it (blocks of 32 elements, 18 members into a
-scratch laid out as its shared memory, then 6 combines), and for the
-squaring chain the team of csrc/fq12_cyclo_team.cuh as
+without a GPU, and, for fq12_mul, fq12_mul024_pre and fq12_sq, the teams of
+csrc/fq12_team.cuh, fq12_mul024_team.cuh and fq12_sq_team.cuh as their
+kernels schedule them (fq12_team_block: blocks of 32 elements, 18, 13 or 12
+members into a scratch laid out as its shared memory, then 6 combines), and
+for the squaring chain the team of csrc/fq12_cyclo_team.cuh as
 kernel_fq12_cyclo_sq_chain.cu schedules it (the element in a state laid out
 as its shared memory for the whole run, each squaring 6 members into a
 scratch, then 6 combines in place); that the kernels build and launch is
@@ -39,6 +40,7 @@ _OPS = [
     "fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq",
     "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024",
     "fq12_mul_team", "fq12_mul_team_reverse", "fq12_cyclo_team", "fq12_cyclo_team_reverse",
+    "fq12_mul024_team", "fq12_mul024_team_reverse", "fq12_sq_team", "fq12_sq_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -190,6 +192,32 @@ def test_header_fq12_mul_team_equals_plain(host_lib, order, batch):
     b = _with_edge_tail(rand_field(351, (3, 2, 3, 2, batch)))
     got = _run_host(host_lib, order, [a, b], TP.Q)
     assert np.array_equal(got, tc.fq12_mul_plain(*_tensors([a, b]), TP.Q).numpy())
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [5, 37, 64])
+@pytest.mark.parametrize("kernel", ["fq12_mul024", "fq12_sq"])
+def test_header_mul024_and_sq_teams_equal_plain(host_lib, kernel, batch, order):
+    """The teams of fq12_mul024_pre (13 members) and fq12_sq (12) at lead 3:
+    with B = 5 one ragged block holds all 15 elements; with B = 37 the blocks
+    of 32 straddle the row boundaries and the last is ragged; with B = 64 a
+    block straddles none.  Members and combines in order and last to first,
+    the scratch poisoned every block; edge values at both ends of the flat
+    batch.  The line's ell0 and its two scaled entries are drawn apart, so a
+    swap of the slots x2 = scaled[1] and x4 = scaled[0] would show."""
+    name = kernel + "_team" + ("_reverse" if order == "reverse" else "")
+    f = _with_edge_tail(rand_field(370, (3, 2, 3, 2, batch)))
+    if kernel == "fq12_sq":
+        got = _run_host(host_lib, name, [f], TP.Q)
+        assert np.array_equal(got, tc.fq12_sq_plain(*_tensors([f]), TP.Q).numpy())
+        return
+    ell0 = _with_edge_tail(rand_field(371, (3, 2, batch)))
+    scaled = _with_edge_tail(rand_field(372, (3, 2, 2, batch)))
+    got = _run_host(host_lib, name, [f, ell0, scaled], TP.Q)
+    want = tc.fq12_mul024_pre_plain(*_tensors([f, ell0, scaled]), TP.Q).numpy()
+    assert np.array_equal(got, want)
+    swapped = tc.fq12_mul024_pre_plain(*_tensors([f, ell0, scaled[:, ::-1]]), TP.Q).numpy()
+    assert not np.array_equal(swapped, want)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,44 +1,50 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, tower.cuh, fq12_team.cuh, fq12_cyclo_team.cuh, curve.cuh are plain C++ when no CUDA
-// compiler is at work).
+// fq.cuh, tower.cuh, fq12_team.cuh, fq12_mul024_team.cuh, fq12_sq_team.cuh,
+// fq12_cyclo_team.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
 #include "curve.cuh"
 #include "fq12_cyclo_team.cuh"
+#include "fq12_mul024_team.cuh"
+#include "fq12_sq_team.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
   OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
   OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024,
-  OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE, OP_FQ12_CYCLO_TEAM, OP_FQ12_CYCLO_TEAM_REVERSE
+  OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE, OP_FQ12_CYCLO_TEAM, OP_FQ12_CYCLO_TEAM_REVERSE,
+  OP_FQ12_MUL024_TEAM, OP_FQ12_MUL024_TEAM_REVERSE, OP_FQ12_SQ_TEAM, OP_FQ12_SQ_TEAM_REVERSE
 };
 
-// kernel_fq12_mul.cu's team, one block after another: the 18 members of a
-// block (each over the block's 32 lanes) write their Fq2 products into a
-// scratch laid out as the kernel's shared memory, [member][coefficient][word]
-// [lane]; then, as after the barrier, the 6 combines read it and store.  The
-// scratch starts every block filled with a pattern that is no field element,
-// and `reverse` runs the members last to first: the result does not change
-// only if no member reads what another writes.  A lane past the end clamps
-// its element and skips the store, as in the kernel.
-static void fq12_mul_team(const int32_t* a, const int32_t* b, int32_t* o, int64_t rows, int64_t B, const Mod& m,
-                          bool reverse) {
-  uint32_t prods[BN_TEAM_MEMBERS * 2 * BN_NW * BN_TEAM_LANES];
+// fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul.cu,
+// kernel_fq12_mul024_pre.cu and kernel_fq12_sq.cu, one block after another:
+// the MEMBERS members of a block (each over the block's 32 lanes) write their
+// Fq2 products into a scratch laid out as the kernel's shared memory,
+// [member][coefficient][word][lane]; then, as after the barrier, the 6
+// combines read it and store.  The scratch starts every block filled with a
+// pattern that is no field element, and `reverse` runs the members and the
+// combines last to first: the result does not change only if no member reads
+// what another writes.  A lane past the end clamps its element and skips the
+// store, as in the kernel.
+template <int MEMBERS, class Member, class Combine>
+static void fq12_team(const Member& member, const Combine& combine, int32_t* o, int64_t rows, int64_t B,
+                      const Mod& m, bool reverse) {
+  uint32_t prods[MEMBERS * 2 * BN_NW * BN_TEAM_LANES];
   const int64_t n = rows * B;
   for (int64_t first = 0; first < n; first += BN_TEAM_LANES) {
     for (uint32_t& x : prods) x = 0xFFFFFFFFu;
-    for (int i = 0; i < BN_TEAM_MEMBERS; i++) {
-      int w = reverse ? BN_TEAM_MEMBERS - 1 - i : i;
-      for (int lane = 0; lane < BN_TEAM_LANES; lane++) {
-        int64_t off = fq12_offset(first + lane < n ? first + lane : n - 1, B);
-        fq2_tab_store(prods + lane, BN_TEAM_LANES, w, fq12_mul_member(w, a + off, b + off, B, m));
-      }
+    for (int i = 0; i < MEMBERS; i++) {
+      int w = reverse ? MEMBERS - 1 - i : i;
+      for (int lane = 0; lane < BN_TEAM_LANES; lane++)
+        fq2_tab_store(prods + lane, BN_TEAM_LANES, w, member(w, first + lane < n ? first + lane : n - 1, B, m));
     }
-    for (int c = 0; c < BN_TEAM_COMBINES; c++)
+    for (int i = 0; i < BN_TEAM_COMBINES; i++) {
+      int c = reverse ? BN_TEAM_COMBINES - 1 - i : i;
       for (int lane = 0; lane < BN_TEAM_LANES && first + lane < n; lane++)
         fq2_store(o + fq12_offset(first + lane, B) + (int64_t)c * 2 * BN_NLIMB * B, B,
-                  fq12_mul_combine(c, prods + lane, BN_TEAM_LANES, m));
+                  combine(c, prods + lane, BN_TEAM_LANES, m));
+    }
   }
 }
 
@@ -102,7 +108,16 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
   m.inv = inv;
   if (op == OP_FQ12_MUL_TEAM || op == OP_FQ12_MUL_TEAM_REVERSE) {
-    fq12_mul_team(a, b, o, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE);
+    fq12_team<BN_TEAM_MEMBERS>(Fq12MulMember{a, b}, Fq12MulCombine(), o, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_FQ12_MUL024_TEAM || op == OP_FQ12_MUL024_TEAM_REVERSE) {  // f, ell0, scaled
+    fq12_team<BN_MUL024_MEMBERS>(Fq12Mul024Member{a, b, c}, Fq12Mul024Combine(), o, rows, B, m,
+                                 op == OP_FQ12_MUL024_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_FQ12_SQ_TEAM || op == OP_FQ12_SQ_TEAM_REVERSE) {
+    fq12_team<BN_SQ_MEMBERS>(Fq12SqMember{a}, Fq12SqCombine(), o, rows, B, m, op == OP_FQ12_SQ_TEAM_REVERSE);
     return 0;
   }
   if (op == OP_FQ12_CYCLO_TEAM || op == OP_FQ12_CYCLO_TEAM_REVERSE) {

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where a block of csrc/kernel_fq12_mul.cu's team, or of
-csrc/kernel_fq12_cyclo_sq_chain.cu's, spends its time on the card.
+"""Where a block of one of the port's team kernels spends its time on the
+card: csrc/kernel_fq12_mul.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu
+(the skeleton fq12_team_block of csrc/fq12_team.cuh) or
+kernel_fq12_cyclo_sq_chain.cu.
 
-fq12_mul (the default):
+fq12_mul (the default), fq12_mul024_pre, fq12_sq:
 
-Builds, with the package's flags for kernel_fq12_mul.cu, a kernel that runs
-the package's team block (fq12_mul_team_block in csrc/fq12_team.cuh, the body
-of k_fq12_mul) with marks that read the multiprocessor's cycle counter
+Builds, with the package's flags, a kernel that runs the package's team block
+(fq12_team_block with the kernel's member and combine, under its
+__launch_bounds__) with marks that read the multiprocessor's cycle counter
 (clock64) in every warp at the block's four marks: at the start, after the
 warp's member has written its Fq2 product to shared memory, after the barrier,
 and after the combine (warps 0-5) or at once (the rest).  A second instance
@@ -16,10 +18,11 @@ loads and pre-sums against the three Montgomery products.  For each batch it pri
 JSON line per instance: the kernel's time (CUDA events, 50 launches after a
 warm-up, the instances in turns), and over all blocks the median cycles of
 the member phase (slowest and mean warp of a block), of the wait at the
-barrier (from the slowest member's arrival to the release), of the combine,
-and of the block from its first warp's start to its last warp's end; with
-the SM clock nvidia-smi reads right after, and the limbs' equality with the
-package's fq12_mul.  A batch of 32 is one block alone on the card.
+barrier (from the slowest member's arrival to the release), of the combine
+(slowest warp, and each of the 6 combines), and of the block from its first
+warp's start to its last warp's end; with the SM clock nvidia-smi reads right
+after, and the limbs' equality with the package's kernel.  A batch of 32 is
+one block alone on the card.
 
 --kernel fq12_cyclo_sq_chain: the same for the chain's team block
 (fq12_cyclo_team_block in csrc/fq12_cyclo_team.cuh, the body of
@@ -38,8 +41,8 @@ multiprocessor the most blocks it ran at once.  The second instance adds
 each member's two operands instead of multiplying them.
 
 Run from the repository root on a machine with a GPU and nvcc:
-    python3 tools/torch_fq12_team_phases.py [B ...] [--kernel fq12_mul|fq12_cyclo_sq_chain] [--n N]
-                                                          (default: 32 8192, fq12_mul, n = 5)
+    python3 tools/torch_fq12_team_phases.py [B ...] [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain]
+                                            [--n N]    (default: 32 8192, fq12_mul, n = 5)
 """
 
 import argparse
@@ -62,13 +65,51 @@ from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 SOURCE = r"""
 #include "launch.cuh"
 #include "fq12_cyclo_team.cuh"
+#include "fq12_mul024_team.cuh"
+#include "fq12_sq_team.cuh"
 
-// the member's loads and pre-sums, with an addition in place of its product
-struct SumMember {
-  __device__ __forceinline__ Fq2 operator()(int w, const int32_t* a, const int32_t* b, int64_t stride,
-                                            const Mod& m) const {
-    int k = w / 6, j = w % 6;
-    return fq2_add(fq12_team_operand(a, stride, k, j, m), fq12_team_operand(b, stride, k, j, m), m);
+// Each team's member from three operand pointers, with its products (the
+// package's member) or with an addition of its two operands in their place.
+struct MulProducts {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    return Fq12MulMember{a, b}(w, e, B, m);
+  }
+};
+struct MulSums {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    const int64_t off = fq12_offset(e, B);
+    const int k = w / 6, j = w % 6;
+    return fq2_add(fq12_team_operand(a + off, B, k, j, m), fq12_team_operand(b + off, B, k, j, m), m);
+  }
+};
+struct Mul024Products {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    return Fq12Mul024Member{a, b, c}(w, e, B, m);
+  }
+};
+struct Mul024Sums {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    Fq2 z, x;
+    fq12_mul024_operands(w, a, b, c, e, B, m, z, x);
+    return fq2_add(z, x, m);
+  }
+};
+struct SqProducts {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    return Fq12SqMember{a}(w, e, B, m);
+  }
+};
+struct SqSums {
+  const int32_t *a, *b, *c;
+  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    const int32_t* p = a + fq12_offset(e, B);
+    const int k = w / 6, j = w % 6;
+    return fq2_add(fq12_sq_operand(p, B, k, 0, j, m), fq12_sq_operand(p, B, k, 1, j, m), m);
   }
 };
 
@@ -80,27 +121,35 @@ struct ClockMarks {
   }
 };
 
-template <class Member>
-__global__ void __launch_bounds__(BN_TEAM_LANES * BN_TEAM_MEMBERS, 1)
-k_phases(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
-         int64_t rows, int64_t B, Mod m, long long* __restrict__ clocks) {
+// the package's team block under the package kernel's __launch_bounds__
+template <int MEMBERS, int MIN_BLOCKS, class Member, class Combine>
+__global__ void __launch_bounds__(BN_TEAM_LANES * MEMBERS, MIN_BLOCKS)
+k_phases(const int32_t* __restrict__ a, const int32_t* __restrict__ b, const int32_t* __restrict__ c,
+         int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m, long long* __restrict__ clocks) {
   ClockMarks marks;
-  fq12_mul_team_block(a, b, o, rows, B, m, Member(), marks);
+  fq12_team_block<MEMBERS>(o, rows, B, m, Member{a, b, c}, Combine(), marks);
   if (threadIdx.x % BN_TEAM_LANES == 0) {
-    long long* c = clocks + ((int64_t)blockIdx.x * BN_TEAM_MEMBERS + threadIdx.x / BN_TEAM_LANES) * 4;
-    for (int i = 0; i < 4; i++) c[i] = marks.t[i];
+    long long* row = clocks + ((int64_t)blockIdx.x * MEMBERS + threadIdx.x / BN_TEAM_LANES) * 4;
+    for (int i = 0; i < 4; i++) row[i] = marks.t[i];
   }
 }
 
-extern "C" int bn_phases(int products, const void* a, const void* b, void* o, long long rows, long long B,
-                         const uint32_t* mod, uint32_t inv, void* clocks, void* stream) {
-  unsigned grid = bn_grid(rows * B, BN_TEAM_LANES);
-  if (products)
-    k_phases<Fq12MulMember><<<grid, BN_TEAM_LANES * BN_TEAM_MEMBERS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv), (long long*)clocks);
-  else
-    k_phases<SumMember><<<grid, BN_TEAM_LANES * BN_TEAM_MEMBERS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv), (long long*)clocks);
+// kernel 0: fq12_mul (a, b), 1: fq12_mul024_pre (f, ell0, scaled), 2: fq12_sq (a)
+extern "C" int bn_phases(int kernel, int products, const void* a, const void* b, const void* c, void* o,
+                         long long rows, long long B, const uint32_t* mod, uint32_t inv, void* clocks,
+                         void* stream) {
+  const unsigned grid = bn_grid(rows * B, BN_TEAM_LANES);
+  const Mod m = bn_make_mod(mod, inv);
+#define BN_PHASES(MEMBERS, MIN_BLOCKS, MEMBER, COMBINE)                                                   \
+  k_phases<MEMBERS, MIN_BLOCKS, MEMBER, COMBINE><<<grid, BN_TEAM_LANES * MEMBERS, 0, (cudaStream_t)stream>>>( \
+      (const int32_t*)a, (const int32_t*)b, (const int32_t*)c, (int32_t*)o, rows, B, m, (long long*)clocks)
+  if (kernel == 0 && products) BN_PHASES(BN_TEAM_MEMBERS, 1, MulProducts, Fq12MulCombine);
+  else if (kernel == 0) BN_PHASES(BN_TEAM_MEMBERS, 1, MulSums, Fq12MulCombine);
+  else if (kernel == 1 && products) BN_PHASES(BN_MUL024_MEMBERS, BN_MUL024_MIN_BLOCKS, Mul024Products, Fq12Mul024Combine);
+  else if (kernel == 1) BN_PHASES(BN_MUL024_MEMBERS, BN_MUL024_MIN_BLOCKS, Mul024Sums, Fq12Mul024Combine);
+  else if (products) BN_PHASES(BN_SQ_MEMBERS, BN_SQ_MIN_BLOCKS, SqProducts, Fq12SqCombine);
+  else BN_PHASES(BN_SQ_MEMBERS, BN_SQ_MIN_BLOCKS, SqSums, Fq12SqCombine);
+#undef BN_PHASES
   return (int)cudaGetLastError();
 }
 
@@ -157,8 +206,15 @@ extern "C" int bn_chain_phases(int products, const void* a, void* o, long long r
   return (int)cudaGetLastError();
 }
 """
-MEMBERS, LANES = 18, 32
+LANES = 32
 CHAIN_MEMBERS = 6
+# the teams of fq12_team_block: kernel -> (bn_phases' kernel index, members,
+# operand structs: an Fq12 element, an Fq2 (ell0), two Fq2 (scaled))
+TEAMS = {
+    "fq12_mul": (0, 18, [(2, 3, 2), (2, 3, 2)]),
+    "fq12_mul024_pre": (1, 13, [(2, 3, 2), (2,), (2, 2)]),
+    "fq12_sq": (2, 12, [(2, 3, 2)]),
+}
 
 
 def smi(query):
@@ -171,7 +227,7 @@ def main():
         sys.exit("needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("batches", type=int, nargs="*", default=[32, 8192])
-    ap.add_argument("--kernel", choices=["fq12_mul", "fq12_cyclo_sq_chain"], default="fq12_mul")
+    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"], default="fq12_mul")
     ap.add_argument("--n", type=int, default=5, help="squarings of the chain")
     args = ap.parse_args()
     card = smi("name,power.limit")
@@ -179,7 +235,7 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     src, so = out_dir / "fq12_team_phases.cu", out_dir / "libfq12_team_phases.so"
     src.write_text(SOURCE)
-    # both kernels' sources build with the same flags (ops/build.py SOURCE_FLAGS)
+    # every team kernel's source builds with the same flags (ops/build.py SOURCE_FLAGS)
     proc = build.compile_start(build.ENTRIES[args.kernel][0], so, src=src)
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -188,7 +244,7 @@ def main():
     if args.kernel == "fq12_cyclo_sq_chain":
         chain_phases(lib, args.batches, args.n, card)
     else:
-        mul_phases(lib, args.batches, card)
+        team_phases(lib, args.kernel, args.batches, card)
 
 
 def timed_runs(launch, clocks, ms, products):
@@ -206,11 +262,14 @@ def timed_runs(launch, clocks, ms, products):
     return clocks.cpu().numpy().copy()
 
 
-def random_fq12(rng, count, batch, dev):
-    """`count` (2, 3, 2, 16, batch) tensors of random field elements."""
-    vals = [int.from_bytes(rng.bytes(40), "big") % P.Q for _ in range(count * 12 * batch)]
-    limbs = P.ints_to_limbs(vals).astype(np.int32).reshape(16, count, 2, 3, 2, batch)
-    return [torch.from_numpy(np.ascontiguousarray(np.moveaxis(limbs[:, i], 0, -2))).to(dev) for i in range(count)]
+def random_operands(rng, structs, batch, dev):
+    """One (*struct, 16, batch) tensor of random field elements for each struct."""
+    out = []
+    for st in structs:
+        vals = [int.from_bytes(rng.bytes(40), "big") % P.Q for _ in range(int(np.prod(st)) * batch)]
+        limbs = P.ints_to_limbs(vals).astype(np.int32).reshape((16,) + tuple(st) + (batch,))
+        out.append(torch.from_numpy(np.ascontiguousarray(np.moveaxis(limbs, 0, -2))).to(dev))
+    return out
 
 
 def blocks_at_once(info):
@@ -240,7 +299,7 @@ def chain_phases(lib, batches, n, card):
     dev = torch.device("cuda")
     med = lambda x: [float(v) for v in np.median(x, axis=0)]  # noqa: E731  over blocks
     for batch in batches:
-        (a,) = random_fq12(rng, 1, batch, dev)
+        (a,) = random_operands(rng, [(2, 3, 2)], batch, dev)
         o = torch.empty_like(a)
         blocks = (batch + LANES - 1) // LANES
         clocks = torch.zeros((blocks, CHAIN_MEMBERS, 3 + 4 * n), dtype=torch.int64, device=dev)
@@ -283,44 +342,49 @@ def chain_phases(lib, batches, n, card):
             }), flush=True)
 
 
-def mul_phases(lib, batches, card):
+def team_phases(lib, kernel, batches, card):
     fn = lib.bn_phases
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    index, members, structs = TEAMS[kernel]
+    package = {"fq12_mul": tc.fq12_mul, "fq12_mul024_pre": tc.fq12_mul024_pre, "fq12_sq": tc.fq12_sq}[kernel]
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(11)
     dev = torch.device("cuda")
     for batch in batches:
-        a, b = random_fq12(rng, 2, batch, dev)
-        o = torch.empty_like(a)
+        ins = random_operands(rng, structs, batch, dev)
+        ptrs = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
+        o = torch.empty_like(ins[0])
         blocks = (batch + LANES - 1) // LANES
-        clocks = torch.zeros((blocks, MEMBERS, 4), dtype=torch.int64, device=dev)
+        clocks = torch.zeros((blocks, members, 4), dtype=torch.int64, device=dev)
         ms = {True: [], False: []}
 
         def launch(products):
-            return fn(int(products), a.data_ptr(), b.data_ptr(), o.data_ptr(), 1, batch, words, inv32,
-                      clocks.data_ptr(), stream)
+            return fn(index, int(products), *ptrs, o.data_ptr(), 1, batch, words, inv32, clocks.data_ptr(), stream)
 
         res = {}
         for products in (True, False, False, True):
             res[products] = timed_runs(launch, clocks, ms, products)
             if products:
-                same = bool(torch.equal(o, tc.fq12_mul(a, b, P.Q)))
+                same = bool(torch.equal(o, package(*ins, P.Q)))
         sm_clock = smi("clocks.sm")
         for products in (True, False):
             c = res[products]  # (blocks, warps, 4)
             member = c[:, :, 1] - c[:, :, 0]
+            combine = c[:, :6, 3] - c[:, :6, 2]
             print(json.dumps({
-                "batch": batch, "instance": "products" if products else "loads and pre-sums only",
+                "kernel": kernel, "batch": batch, "instance": "products" if products else "loads and pre-sums only",
                 "ms": ms[products], "blocks": blocks,
                 "member_cycles_slowest_warp": float(np.median(member.max(axis=1))),
                 "member_cycles_mean_warp": float(np.median(member.mean(axis=1))),
+                "member_cycles_by_warp": [float(x) for x in np.median(member, axis=0)],
                 "barrier_wait_cycles": float(np.median(c[:, :, 2].max(axis=1) - c[:, :, 1].max(axis=1))),
-                "combine_cycles": float(np.median((c[:, :6, 3] - c[:, :6, 2]).max(axis=1))),
+                "combine_cycles": float(np.median(combine.max(axis=1))),
+                "combine_cycles_by_warp": [float(x) for x in np.median(combine, axis=0)],
                 "block_cycles": float(np.median(c[:, :, 3].max(axis=1) - c[:, :, 0].min(axis=1))),
-                "sm_clock_after": sm_clock, "equals_fq12_mul": same if products else None, "card": card,
+                "sm_clock_after": sm_clock, f"equals_{kernel}": same if products else None, "card": card,
             }), flush=True)
 
 

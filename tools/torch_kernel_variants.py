@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Compare builds of the port's Fq12-sized, Miller-step, step and curve kernels on
-the card.  For fq12_mul: the team design of csrc/kernel_fq12_mul.cu (18 warps
-on 32 elements, the product out of line, as the package builds it) against
-the one-thread design it replaced (THREAD_SOURCE below, the product out of
-line) and against the team with the product inlined.  For
-fq12_cyclo_sq_chain, likewise: the team of csrc/kernel_fq12_cyclo_sq_chain.cu
-(6 warps on 32 elements, __launch_bounds__ for 2 blocks a multiprocessor)
-against the one-thread design (CHAIN_THREAD_SOURCE), the team with registers
-for 3 blocks a multiprocessor, and the team with the product inlined; at
-n = 1, 2 and 5 squarings.
+the card.  For the team kernels, the team design against the one-thread
+design it replaced (a source this tool keeps, the product out of line):
+fq12_mul (18 warps on 32 elements; THREAD_SOURCE), also against the team on
+a skeleton of its own instead of the shared fq12_team_block
+(MUL_OWN_SKELETON_SOURCE) and against the team with the product inlined;
+fq12_mul024_pre (13 warps; MUL024_THREAD_SOURCE) and fq12_sq (12 warps;
+SQ_THREAD_SOURCE), __launch_bounds__ for 2 blocks a multiprocessor, also
+against the team with registers for one block; fq12_cyclo_sq_chain (6 warps, __launch_bounds__ for 2 blocks
+a multiprocessor; CHAIN_THREAD_SOURCE), also against the team with registers
+for 3 blocks and the team with the product inlined, at n = 1, 2 and 5
+squarings.
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -19,9 +21,10 @@ stack, spills, static shared memory), the kernel's time at each batch (CUDA
 events, 50 launches after a warm-up, variants in turns: a, b, b, a, or a, b, c,
 c, b, a), and whether every variant returns the first one's limbs.
 With --pairing it then times `ate.pairing_batch` at B = 8192 with the
-package's fq12_mul, or fq12_cyclo_sq_chain, swapped for each build of it
-(whichever of the two are picked, one after the other), in turns (team,
-thread, thread, team), in the three configurations of
+package's build of each picked team kernel swapped for its one-thread build,
+one kernel at a time, and, when fq12_mul024_pre and fq12_sq are both picked,
+the two together (the Miller loop's two kernels), in turns (team, thread,
+thread, team), in the three configurations of
 tools/torch_pairing_profile.py, and prints one JSON line per build and
 configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
 (the host's pace included), the device-busy time of one call under
@@ -67,7 +70,18 @@ OWN_VARIANTS = {
     "fq12_mul": {
         "team": ["-DBN_MUL_OUT_OF_LINE"],
         "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_own_skeleton": ["-DBN_MUL_OUT_OF_LINE"],
         "team_inline": [],
+    },
+    "fq12_mul024_pre": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_1_block": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MUL024_MIN_BLOCKS=1"],
+    },
+    "fq12_sq": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_1_block": ["-DBN_MUL_OUT_OF_LINE", "-DBN_SQ_MIN_BLOCKS=1"],
     },
     "fq12_cyclo_sq_chain": {
         "team": ["-DBN_MUL_OUT_OF_LINE"],
@@ -100,6 +114,91 @@ extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows
   return (int)cudaGetLastError();
 }
 """
+MUL_OWN_SKELETON_SOURCE = r"""
+// fq12_mul's team on a block skeleton of its own, the one it had before the
+// shared fq12_team_block of csrc/fq12_team.cuh: the same members, combines
+// and launch, the element's offset computed once for the loads and the store.
+#include "launch.cuh"
+#include "fq12_team.cuh"
+
+__global__ void __launch_bounds__(BN_TEAM_LANES * BN_TEAM_MEMBERS, 1)
+k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
+           int64_t rows, int64_t B, Mod m) {
+  __shared__ uint32_t prods[BN_TEAM_MEMBERS][2][BN_NW][BN_TEAM_LANES];
+  const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
+  const int64_t n = rows * B;
+  int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
+  const bool live = e < n;
+  if (!live) e = n - 1;
+  const int64_t off = fq12_offset(e, B);
+  uint32_t* mine = &prods[0][0][0][0] + lane;
+  fq2_tab_store(mine, BN_TEAM_LANES, w, fq12_mul_member(w, a + off, b + off, B, m));
+  __syncthreads();
+  if (w < BN_TEAM_COMBINES && live)
+    fq2_store(o + off + (int64_t)w * 2 * BN_NLIMB * B, B, fq12_mul_combine(w, mine, BN_TEAM_LANES, m));
+}
+
+extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows, long long B,
+                           const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_mul<<<bn_grid(rows * B, BN_TEAM_LANES), BN_TEAM_LANES * BN_TEAM_MEMBERS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+MUL024_THREAD_SOURCE = r"""
+// fq12_mul024_pre as one thread per element, 64 threads a block: the design of
+// csrc/kernel_fq12_mul024_pre.cu before its team, the baseline the team is
+// timed against, with the same entry and kernel name.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_fq12_mul024_pre(const int32_t* __restrict__ f, const int32_t* __restrict__ ell0,
+                  const int32_t* __restrict__ scaled, int32_t* __restrict__ o, int64_t rows,
+                  int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t row = t / B, b = t % B;
+  int64_t off = row * 12 * BN_NLIMB * B + b;
+  Fq12 a = fq12_load(f + off, B);
+  Fq2 x0 = fq2_load(ell0 + row * 2 * BN_NLIMB * B + b, B);
+  const int32_t* s = scaled + row * 4 * BN_NLIMB * B + b;
+  Fq2 x4 = fq2_load(s, B);                     // ell_vw * g1.y
+  Fq2 x2 = fq2_load(s + 2 * BN_NLIMB * B, B);  // ell_vv * g1.x
+  fq12_store(o + off, B, fq12_mul_by_024(a, x0, x2, x4, m));
+}
+
+extern "C" int bn_fq12_mul024_pre(const void* f, const void* ell0, const void* scaled, void* o,
+                                  long long rows, long long B, const uint32_t* mod, uint32_t inv,
+                                  void* stream) {
+  k_fq12_mul024_pre<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)f, (const int32_t*)ell0, (const int32_t*)scaled, (int32_t*)o, rows, B,
+      bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+SQ_THREAD_SOURCE = r"""
+// fq12_sq as one thread per element, 64 threads a block: the design of
+// csrc/kernel_fq12_sq.cu before its team, the baseline the team is timed
+// against, with the same entry and kernel name.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_fq12_sq(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 12 * BN_NLIMB * B + (t % B);
+  fq12_store(o + off, B, fq12_sq(fq12_load(a + off, B), m));
+}
+
+extern "C" int bn_fq12_sq(const void* a, void* o, long long rows, long long B,
+                          const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_sq<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
 CHAIN_THREAD_SOURCE = r"""
 // fq12_cyclo_sq_chain as one thread per element, 64 threads a block: the
 // design of csrc/kernel_fq12_cyclo_sq_chain.cu before its team, the baseline
@@ -128,8 +227,15 @@ extern "C" int bn_fq12_cyclo_sq_chain(const void* a, void* o, long long rows, lo
   return (int)cudaGetLastError();
 }
 """
-OWN_SOURCES = {("fq12_mul", "thread"): THREAD_SOURCE, ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE}
+OWN_SOURCES = {
+    ("fq12_mul", "thread"): THREAD_SOURCE,
+    ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
+    ("fq12_mul024_pre", "thread"): MUL024_THREAD_SOURCE,
+    ("fq12_sq", "thread"): SQ_THREAD_SOURCE,
+    ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE,
+}
 PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
+MILLER_LOOP_TEAMS = ("fq12_mul024_pre", "fq12_sq")  # swapped together too when both are picked
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
@@ -164,7 +270,7 @@ def main():
     ap.add_argument("kernels", nargs="*", default=list(KERNELS))
     ap.add_argument("--batch", type=int, nargs="+", default=[B])
     ap.add_argument("--pairing", action="store_true",
-                    help="time pairing_batch with each build of fq12_mul or fq12_cyclo_sq_chain (those picked)")
+                    help="time pairing_batch with each picked team kernel's team and one-thread builds swapped in")
     args = ap.parse_args()
     picked = args.kernels
     unknown = [k for k in picked if k not in KERNELS]
@@ -245,13 +351,18 @@ def main():
             }), flush=True)
 
     if args.pairing:
-        for kernel in (k for k in OWN_VARIANTS if k in picked):
-            time_pairing(kernel, {var: libs[build.ENTRIES[kernel][0], var] for var in PAIRING_VARIANTS}, card)
+        swaps = [(k,) for k in OWN_VARIANTS if k in picked]
+        if all(k in picked for k in MILLER_LOOP_TEAMS):
+            swaps.append(MILLER_LOOP_TEAMS)
+        for kernels in swaps:
+            time_pairing(kernels, {var: {k: libs[build.ENTRIES[k][0], var] for k in kernels}
+                                   for var in PAIRING_VARIANTS}, card)
 
 
-def time_pairing(kernel, kernel_libs, card):
-    """pairing_batch at B = 8192 with build.launch's `kernel` taken from each
-    library of kernel_libs in turns; the inputs of tools/torch_pairing_profile.py."""
+def time_pairing(kernels, kernel_libs, card):
+    """pairing_batch at B = 8192 with build.launch's entries of `kernels`
+    taken from each build's libraries (kernel_libs: build -> kernel ->
+    library) in turns; the inputs of tools/torch_pairing_profile.py."""
     rng = np.random.default_rng(42)
     k1, k2 = (fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
               for _ in range(2))
@@ -262,11 +373,13 @@ def time_pairing(kernel, kernel_libs, card):
                       "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
     package_entry = build.entry
     entries = {}
-    for var, lib in kernel_libs.items():
-        fn = getattr(lib, f"bn_{kernel}")
-        fn.argtypes = list(build.ENTRIES[kernel][1]) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        entries[var] = fn
+    for var, libs in kernel_libs.items():
+        entries[var] = {}
+        for kernel, lib in libs.items():
+            fn = getattr(lib, f"bn_{kernel}")
+            fn.argtypes = list(build.ENTRIES[kernel][1]) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            entries[var][kernel] = fn
     ms = {(var, c, how): [] for var in entries for c in configurations for how in ("eager", "busy", "graph")}
     launches, same, first = {}, {}, {}
 
@@ -284,7 +397,7 @@ def time_pairing(kernel, kernel_libs, card):
 
     try:
         for var in list(entries) + list(entries)[::-1]:
-            build.entry = lambda name, fn=entries[var]: fn if name == kernel else package_entry(name)
+            build.entry = lambda name, fns=entries[var]: fns[name] if name in fns else package_entry(name)
             for c, switches in configurations.items():
                 with backend.fusions(**switches):
                     ate.pairing_batch(p, q)  # warm-up
@@ -314,11 +427,12 @@ def time_pairing(kernel, kernel_libs, card):
         for c in configurations:
             runs = {how: ms[var, c, how] for how in ("eager", "busy", "graph")}
             print(json.dumps({
-                "pairing_batch": c, "swapped": kernel, "build": var, "batch": B,
+                "pairing_batch": c, "swapped": "+".join(kernels), "build": var, "batch": B,
                 "ms_eager": statistics.median(runs["eager"]), "ms_eager_runs": runs["eager"],
                 "device_busy_ms_runs": runs["busy"],
                 "ms_graph_replay": statistics.median(runs["graph"]), "ms_graph_replay_runs": runs["graph"],
-                "launches": sum(launches[var, c].values()), "swapped_launches": launches[var, c][kernel],
+                "launches": sum(launches[var, c].values()),
+                "swapped_launches": {k: launches[var, c][k] for k in kernels},
                 "same_result_as_team": same[var, c], "card": card,
             }), flush=True)
 
