@@ -50,15 +50,7 @@ extern "C" int bn_fq12_cyclo_sq_chain(const void* a, void* o, long long rows, lo
   return (int)cudaGetLastError();
 }
 
-// What bn_fq12_cyclo_sq_chain launches for rows * B elements, as the loaded
-// library has it: out[0] blocks, out[1] threads a block, out[2] static shared
-// bytes of k_fq12_cyclo_sq_chain (cudaFuncGetAttributes).  Returns that call's
-// error code.
+// What bn_fq12_cyclo_sq_chain launches for rows * B elements (bn_launch_dims).
 extern "C" int bn_fq12_cyclo_sq_chain_launch(long long rows, long long B, long long* out) {
-  cudaFuncAttributes attr;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, k_fq12_cyclo_sq_chain);
-  out[0] = bn_grid(rows * B, BN_TEAM_LANES);
-  out[1] = BN_CYCLO_BLOCK;
-  out[2] = rc == cudaSuccess ? (long long)attr.sharedSizeBytes : -1;
-  return (int)rc;
+  return bn_launch_dims(k_fq12_cyclo_sq_chain, BN_TEAM_LANES, BN_CYCLO_BLOCK, rows * B, out);
 }

@@ -39,14 +39,7 @@ extern "C" int bn_fq12_sq(const void* a, void* o, long long rows, long long B,
   return (int)cudaGetLastError();
 }
 
-// What bn_fq12_sq launches for rows * B elements, as the loaded library has
-// it: out[0] blocks, out[1] threads a block, out[2] static shared bytes of
-// k_fq12_sq (cudaFuncGetAttributes).  Returns that call's error code.
+// What bn_fq12_sq launches for rows * B elements (bn_launch_dims).
 extern "C" int bn_fq12_sq_launch(long long rows, long long B, long long* out) {
-  cudaFuncAttributes attr;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, k_fq12_sq);
-  out[0] = bn_grid(rows * B, BN_TEAM_LANES);
-  out[1] = BN_SQ_BLOCK;
-  out[2] = rc == cudaSuccess ? (long long)attr.sharedSizeBytes : -1;
-  return (int)rc;
+  return bn_launch_dims(k_fq12_sq, BN_TEAM_LANES, BN_SQ_BLOCK, rows * B, out);
 }

@@ -22,6 +22,21 @@ static inline unsigned bn_grid(long long n, int block) {
   return (unsigned)((n + block - 1) / block);
 }
 
+// What a kernel that gives `per_block` elements to a block of `threads`
+// threads launches for n elements, as the loaded library has it: out[0]
+// blocks, out[1] threads a block, out[2] static shared bytes of `kernel`
+// (cudaFuncGetAttributes, -1 when it fails).  Returns that call's error code.
+// The team kernels' bn_<name>_launch entries report through it.
+template <class Kernel>
+static int bn_launch_dims(Kernel kernel, int per_block, int threads, long long n, long long* out) {
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = bn_grid(n, per_block);
+  out[1] = threads;
+  out[2] = rc == cudaSuccess ? (long long)attr.sharedSizeBytes : -1;
+  return (int)rc;
+}
+
 // Global thread index as a 64-bit value.
 __device__ __forceinline__ int64_t bn_tid() {
   return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;

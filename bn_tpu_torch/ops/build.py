@@ -65,8 +65,8 @@ ENTRIES = {
     # exponent words (host), digit count, R mod m words (host)
     "pow_fixed": ("kernel_pow_fixed", [_P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.c_int, ctypes.POINTER(_U32)] + _MODARGS),
     "fq12_cyclo_sq_chain": ("kernel_fq12_cyclo_sq_chain", [_P, _P, _LL, _LL, ctypes.c_int] + _MODARGS),
-    # r, r_out, coeffs_out; 1/2 and the twist's b as Montgomery words (host)
-    "double_step": ("kernels_g2_step", [_P, _P, _P, _LL, _LL, ctypes.POINTER(_U32), ctypes.POINTER(_U32)] + _MODARGS),
+    # r, r_out, coeffs_out; the twist's b as Montgomery words (host)
+    "double_step": ("kernels_g2_step", [_P, _P, _P, _LL, _LL, ctypes.POINTER(_U32)] + _MODARGS),
     # r, base, r_out, coeffs_out
     "madd_step": ("kernels_g2_step", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
     # x1, y1, z1, x2, y2, z2, x3, y3, z3; the flag says G2 (coordinates over Fq2)

@@ -295,9 +295,10 @@ def step_consts(device_str: str):
 
 @functools.lru_cache(maxsize=None)
 def _step_const_args():
-    """The same two constants as the 32-bit words the kernel takes by value."""
-    two_inv, b0, b1 = (P.int_to_words(v) for v in _step_const_monts())
-    return (ctypes.c_uint32 * P.NWORDS)(*two_inv), (ctypes.c_uint32 * (2 * P.NWORDS))(*b0, *b1)
+    """double_step's own argument: the twist's b as the 32-bit words the
+    kernel takes by value (it halves where the formula multiplies by 1/2)."""
+    b0, b1 = (P.int_to_words(v) for v in _step_const_monts()[1:])
+    return ((ctypes.c_uint32 * (2 * P.NWORDS))(*b0, *b1),)
 
 
 def _mul3(F, a):

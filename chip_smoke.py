@@ -25,12 +25,13 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape; the four team kernels, `fq12_mul`,
-    `fq12_sq`, `fq12_mul024_pre` and the chain, are also held at B = 37,
-    lead 3 (blocks of 32 that straddle the rows), and their rows give the
-    block of their launch at the timed shape (threads, elements) and the
-    loaded kernel's static shared memory (cudaFuncGetAttributes); the
-    chain's row its time at n = 1 and 5 beside n = 2;
+    kernel's bound at the timed shape; the six team kernels, `fq12_mul`,
+    `fq12_sq`, `fq12_mul024_pre`, the chain, `double_step` and `madd_step`,
+    are also held at B = 37, lead 3 (blocks of 32 that straddle the rows),
+    and their rows give the block of their launch at the timed shape
+    (threads, elements) and the loaded kernel's static shared memory
+    (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5 beside
+    n = 2;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
@@ -102,7 +103,8 @@ B_UNFUSED = 1024  # lanes of the same inputs the unfused path is driven on
 ZERO_DIGIT_EXPONENT = 0xA0B7F03  # a short exponent with a zero digit inside
 
 # kernel -> (C source, TPU kernel it replaces, operand structs at the timed
-#            shape, base-field products per element, word adds per element).
+#            shape, base-field products per element, word adds per element;
+#            the adds set the bound only where a kernel has no products).
 # pow_fixed's products are per product of its ladder and the chain's per
 # squaring: products_of() multiplies them out.
 KERNEL_TABLE = {
@@ -119,7 +121,8 @@ KERNEL_TABLE = {
     "fq12_mul024_pre": ("kernel_fq12_mul024_pre.cu", "bn_tpu/ops/tower_pallas.py:1047", [(2, 3, 2), (2,), (2, 2)], 39, 0),
     "fq12_cyclo_sq": ("kernel_fq12_cyclo_sq.cu", "bn_tpu/ops/tower_pallas.py:1015", [(2, 3, 2)], 18, 0),
     "fq12_cyclo_sq_chain": ("kernel_fq12_cyclo_sq_chain.cu", "bn_tpu/ops/tower_pallas.py:1020", [(2, 3, 2)], 18, 0),
-    "double_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1068", [(3, 2)], 28, 0),
+    # the two products by 1/2 of the formula are halvings: 2 Fq2 halvings as 64 word adds
+    "double_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1068", [(3, 2)], 24, 64),
     "madd_step": ("kernels_g2_step.cu", "bn_tpu/ops/tower_pallas.py:1077", [(3, 2), (2, 2)], 37, 0),
     "fq12_mul024": ("kernel_fq12_mul024.cu", "bn_tpu/ops/tower_pallas.py:1039", [(2, 3, 2), (3, 2)], 39, 0),
     # products with the square; 43 without (products_of)
@@ -134,7 +137,7 @@ CURVE_KERNELS = {
 }
 # kernels whose C source also has bn_<name>_launch: the block of a launch.
 # These give 32 elements to a block, so they are also held at B_STRADDLE.
-TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq_chain")
+TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq_chain", "double_step", "madd_step")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
@@ -425,7 +428,7 @@ def main():
         }
         if name in TEAM_KERNELS:  # the launch at this shape, from the loaded library
             dims = (ctypes.c_longlong * 3)()
-            rows, batch = math.prod(ins[0].shape[:-5]), ins[0].shape[-1]
+            rows, batch = math.prod(ins[0].shape[:-(len(structs[0]) + 2)]), ins[0].shape[-1]
             if getattr(ctypes.CDLL(str(build.lib_path(source[:-3]))), f"bn_{name}_launch")(
                     ctypes.c_longlong(rows), ctypes.c_longlong(batch), dims) != 0:
                 fail(f"cudaFuncGetAttributes refused k_{name}")

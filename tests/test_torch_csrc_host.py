@@ -12,8 +12,11 @@ members into a scratch laid out as its shared memory, then 6 combines), and
 for the squaring chain the team of csrc/fq12_cyclo_team.cuh as
 kernel_fq12_cyclo_sq_chain.cu schedules it (the element in a state laid out
 as its shared memory for the whole run, each squaring 6 members into a
-scratch, then 6 combines in place); that the kernels build and launch is
-what chip_smoke.py checks on the card.
+scratch, then 6 combines in place), and for double_step and madd_step the
+teams of csrc/g2_step_team.cuh as kernels_g2_step.cu schedules them (the
+step's values in a state laid out as its shared memory, 4 members a level,
+the outputs stored at the levels the schedule names); that the kernels build
+and launch is what chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
 
@@ -41,6 +44,7 @@ _OPS = [
     "pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024",
     "fq12_mul_team", "fq12_mul_team_reverse", "fq12_cyclo_team", "fq12_cyclo_team_reverse",
     "fq12_mul024_team", "fq12_mul024_team_reverse", "fq12_sq_team", "fq12_sq_team_reverse",
+    "double_step_team", "double_step_team_reverse", "madd_step_team", "madd_step_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -145,8 +149,10 @@ def test_header_cyclo_sq_chain_equals_plain(host_lib, n):
 
 
 def test_header_double_step_equals_plain(host_lib):
+    """tower.cuh's one-thread formula, which multiplies by 1/2."""
     r = rand_field(320, (3, 3, 2, 5))
-    two_inv, twist_b = tc._step_const_args()
+    (twist_b,) = tc._step_const_args()
+    two_inv = TP.int_to_words(tc._step_const_monts()[0])
     got = _run_host(host_lib, "double_step", [r], TP.Q, extra=list(two_inv) + list(twist_b), two_outputs=True)
     want = tc.double_step_plain(*_tensors([r]))
     assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
@@ -240,6 +246,38 @@ def test_header_cyclo_chain_team_equals_plain(host_lib, n, batch, order):
     a, want = _cyclo_chain_case(n, batch)
     got = _run_host(host_lib, order, [a], TP.Q, n=n)
     assert np.array_equal(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_case(kernel, batch):
+    """A step's operands at lead 3 and batch `batch` (the running point, and
+    for madd_step the affine base), edge values at both ends of the flat
+    batch, and the plain version's two outputs."""
+    ins = [_with_edge_tail(rand_field(380, (3, 3, 2, batch)))]
+    if kernel == "madd_step":
+        ins.append(_with_edge_tail(rand_field(381, (3, 2, 2, batch))))
+        want = tc.madd_step_plain(*_tensors(ins))
+    else:
+        want = tc.double_step_plain(*_tensors(ins))
+    return ins, tuple(w.numpy() for w in want)
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [5, 37, 64])
+@pytest.mark.parametrize("kernel", ["double_step", "madd_step"])
+def test_header_step_teams_equal_plain(host_lib, kernel, batch, order):
+    """The teams of double_step (3 levels) and madd_step (4 levels) at lead 3:
+    with B = 5 one ragged block holds all 15 elements; with B = 37 the blocks
+    of 32 straddle the row boundaries and the last is ragged; with B = 64 a
+    block straddles none.  Members and stores in order and last to first (a
+    level's stores before its members), the state poisoned every block; edge
+    values at both ends of the flat batch.  Both outputs, the new point and
+    the line's coefficients, limb for limb."""
+    ins, want = _step_case(kernel, batch)
+    name = kernel + "_team" + ("_reverse" if order == "reverse" else "")
+    extra = list(tc._step_const_args()[0]) if kernel == "double_step" else ()
+    got = _run_host(host_lib, name, ins, TP.Q, extra=extra, two_outputs=True)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
 def _run_host_curve(lib, group, coords):

@@ -1,6 +1,7 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
 // fq.cuh, tower.cuh, fq12_team.cuh, fq12_mul024_team.cuh, fq12_sq_team.cuh,
-// fq12_cyclo_team.cuh, curve.cuh are plain C++ when no CUDA compiler is at work).
+// fq12_cyclo_team.cuh, g2_step_team.cuh, curve.cuh are plain C++ when no CUDA
+// compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
@@ -8,13 +9,15 @@
 #include "fq12_cyclo_team.cuh"
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
+#include "g2_step_team.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
   OP_FQ12_MUL, OP_FQ12_SQ, OP_FQ12_MUL024_PRE, OP_FQ12_CYCLO_SQ,
   OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024,
   OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE, OP_FQ12_CYCLO_TEAM, OP_FQ12_CYCLO_TEAM_REVERSE,
-  OP_FQ12_MUL024_TEAM, OP_FQ12_MUL024_TEAM_REVERSE, OP_FQ12_SQ_TEAM, OP_FQ12_SQ_TEAM_REVERSE
+  OP_FQ12_MUL024_TEAM, OP_FQ12_MUL024_TEAM_REVERSE, OP_FQ12_SQ_TEAM, OP_FQ12_SQ_TEAM_REVERSE,
+  OP_DOUBLE_STEP_TEAM, OP_DOUBLE_STEP_TEAM_REVERSE, OP_MADD_STEP_TEAM, OP_MADD_STEP_TEAM_REVERSE
 };
 
 // fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul.cu,
@@ -91,6 +94,50 @@ static void fq12_cyclo_team(const int32_t* a, int32_t* o, int64_t rows, int64_t 
   }
 }
 
+// g2_step_team_block (g2_step_team.cuh), the block of kernels_g2_step.cu,
+// one block after another: the step's inputs of the block's 32 elements are
+// loaded into a state laid out as the kernel's shared memory,
+// [slot][coefficient][word][lane]; then at each level the members (each over
+// the 32 lanes) write their slots and the outputs of that level are stored;
+// after the last level the rest are stored.  The state starts every block
+// filled with a pattern that is no field element, and `reverse` runs each
+// level's stores before its members and both last to first: the result does
+// not change only if no member reads a slot of its own level and no store
+// reads a slot its level writes.  A warp stores the outputs whose out_warp
+// and out_level name it, as in the kernel, so an output no warp of the team
+// stores is left unwritten.  A lane past the end clamps its element and skips
+// the stores, as in the kernel.
+template <class Step>
+static void g2_step_team(const Step& step, int32_t* r_out, int32_t* c_out, int64_t rows, int64_t B, const Mod& m,
+                         bool reverse) {
+  uint32_t state[Step::SLOTS * 2 * BN_NW * BN_TEAM_LANES];
+  const int64_t n = rows * B;
+  for (int64_t first = 0; first < n; first += BN_TEAM_LANES) {
+    auto elem = [&](int lane) { return first + lane < n ? first + lane : n - 1; };
+    auto stores = [&](int l) {  // each warp's outputs of level l, as the kernel picks them
+      for (int i = 0; i < Step::kMembers * BN_STEP_OUTPUTS; i++) {
+        int j = reverse ? Step::kMembers * BN_STEP_OUTPUTS - 1 - i : i, w = j / BN_STEP_OUTPUTS, k = j % BN_STEP_OUTPUTS;
+        if (Step::out_level(k) != l || Step::out_warp(k) != w) continue;
+        for (int lane = 0; lane < BN_TEAM_LANES && first + lane < n; lane++)
+          g2_step_store(r_out, c_out, k, first + lane, B, step.output(k, state + lane, BN_TEAM_LANES, m));
+      }
+    };
+    for (uint32_t& x : state) x = 0xFFFFFFFFu;
+    for (int k = 0; k < Step::kInputs; k++)
+      for (int lane = 0; lane < BN_TEAM_LANES; lane++)
+        fq2_tab_store(state + lane, BN_TEAM_LANES, k, step.input(k, elem(lane), B));
+    for (int l = 0; l < Step::kLevels; l++) {
+      if (reverse) stores(l);
+      for (int i = 0; i < Step::kMembers; i++) {
+        int w = reverse ? Step::kMembers - 1 - i : i;
+        for (int lane = 0; lane < BN_TEAM_LANES; lane++) step.member(l, w, state + lane, BN_TEAM_LANES, m);
+      }
+      if (!reverse) stores(l);
+    }
+    stores(Step::kLevels);
+  }
+}
+
 static Fq words_fq(const uint32_t* w) {
   Fq r;
   for (int i = 0; i < BN_NW; i++) r.w[i] = w[i];
@@ -100,7 +147,7 @@ static Fq words_fq(const uint32_t* w) {
 // out2 is the second output of the step kernels.  n and extra are a kernel's
 // own arguments: pow_fixed takes n = digit count and extra = exponent words
 // then the words of R mod m; the chain takes n = squarings; double_step takes
-// extra = the words of 1/2 then of the twist's b.
+// extra = the words of 1/2 then of the twist's b, its team the twist's b only.
 extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_t* c, int32_t* o,
                         int32_t* out2, long long rows, long long B, int n, const uint32_t* extra,
                         const uint32_t* mod, uint32_t inv) {
@@ -118,6 +165,17 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   }
   if (op == OP_FQ12_SQ_TEAM || op == OP_FQ12_SQ_TEAM_REVERSE) {
     fq12_team<BN_SQ_MEMBERS>(Fq12SqMember{a}, Fq12SqCombine(), o, rows, B, m, op == OP_FQ12_SQ_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_DOUBLE_STEP_TEAM || op == OP_DOUBLE_STEP_TEAM_REVERSE) {  // extra: the twist's b
+    Fq2 tb;
+    tb.c0 = words_fq(extra);
+    tb.c1 = words_fq(extra + BN_NW);
+    g2_step_team(G2DoubleTeam{a, tb}, o, out2, rows, B, m, op == OP_DOUBLE_STEP_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_MADD_STEP_TEAM || op == OP_MADD_STEP_TEAM_REVERSE) {  // r, base
+    g2_step_team(G2MaddTeam{a, b}, o, out2, rows, B, m, op == OP_MADD_STEP_TEAM_REVERSE);
     return 0;
   }
   if (op == OP_FQ12_CYCLO_TEAM || op == OP_FQ12_CYCLO_TEAM_REVERSE) {

@@ -40,9 +40,21 @@ the run (cycles over nanoseconds), the kernel's span, and for each
 multiprocessor the most blocks it ran at once.  The second instance adds
 each member's two operands instead of multiplying them.
 
+--kernel double_step|madd_step: the same for a precompute step's team block
+(g2_step_team_block in csrc/g2_step_team.cuh with G2DoubleTeam or
+G2MaddTeam, the body of k_double_step / k_madd_step, under the same
+__launch_bounds__), with the marks of the chain: for each batch one line with
+the kernel's time, the load phase, and for each level, over all blocks, the
+median cycles of the members and that level's stores (slowest warp, mean
+warp, and each warp) and of the wait at the level's barrier; the final
+stores, the block's cycles and µs, the SM clock in the run, the most blocks
+a multiprocessor ran at once, and the limbs' equality with the package's
+kernel (both outputs).
+
 Run from the repository root on a machine with a GPU and nvcc:
-    python3 tools/torch_fq12_team_phases.py [B ...] [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain]
-                                            [--n N]    (default: 32 8192, fq12_mul, n = 5)
+    python3 tools/torch_fq12_team_phases.py [B ...]
+        [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain|double_step|madd_step]
+        [--n N]    (default: 32 8192, fq12_mul, n = 5)
 """
 
 import argparse
@@ -67,6 +79,7 @@ SOURCE = r"""
 #include "fq12_cyclo_team.cuh"
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
+#include "g2_step_team.cuh"
 
 // Each team's member from three operand pointers, with its products (the
 // package's member) or with an addition of its two operands in their place.
@@ -205,9 +218,52 @@ extern "C" int bn_chain_phases(int products, const void* a, void* o, long long r
         (const int32_t*)a, (int32_t*)o, rows, B, n, bn_make_mod(mod, inv), (long long*)clocks, (long long*)info);
   return (int)cudaGetLastError();
 }
+
+// a step's team block under k_double_step's / k_madd_step's __launch_bounds__,
+// with the chain's marks: 3 + 2 kLevels a warp
+template <class Step>
+__global__ void __launch_bounds__(BN_TEAM_LANES * Step::kMembers, 2)
+k_step_phases(Step step, int32_t* __restrict__ r_out, int32_t* __restrict__ c_out, int64_t rows, int64_t B, Mod m,
+              long long* __restrict__ clocks, long long* __restrict__ info) {
+  constexpr int kMarks = 3 + 2 * Step::kLevels;
+  RowClockMarks marks{clocks + ((int64_t)blockIdx.x * Step::kMembers + threadIdx.x / BN_TEAM_LANES) * kMarks,
+                      info + (int64_t)blockIdx.x * 3, kMarks - 1};
+  g2_step_team_block(step, r_out, c_out, rows, B, m, marks);
+}
+
+// out[0] warps and out[1] levels of double_step's team (madd = 0) or madd_step's (1)
+extern "C" void bn_step_shape(int madd, int* out) {
+  out[0] = madd ? G2MaddTeam::kMembers : G2DoubleTeam::kMembers;
+  out[1] = madd ? G2MaddTeam::kLevels : G2DoubleTeam::kLevels;
+}
+
+// madd = 0: double_step on r with the twist's b (sixteen words, host);
+// madd = 1: madd_step on r and base
+extern "C" int bn_step_phases(int madd, const void* r, const void* base, void* r_out, void* c_out, long long rows,
+                              long long B, const uint32_t* twist_b, const uint32_t* mod, uint32_t inv, void* clocks,
+                              void* info, void* stream) {
+  const unsigned grid = bn_grid(rows * B, BN_TEAM_LANES);
+  const Mod m = bn_make_mod(mod, inv);
+  if (madd) {
+    k_step_phases<<<grid, BN_TEAM_LANES * G2MaddTeam::kMembers, 0, (cudaStream_t)stream>>>(
+        G2MaddTeam{(const int32_t*)r, (const int32_t*)base}, (int32_t*)r_out, (int32_t*)c_out, rows, B, m,
+        (long long*)clocks, (long long*)info);
+  } else {
+    Fq2 tb;
+    for (int i = 0; i < BN_NW; i++) {
+      tb.c0.w[i] = twist_b[i];
+      tb.c1.w[i] = twist_b[BN_NW + i];
+    }
+    k_step_phases<<<grid, BN_TEAM_LANES * G2DoubleTeam::kMembers, 0, (cudaStream_t)stream>>>(
+        G2DoubleTeam{(const int32_t*)r, tb}, (int32_t*)r_out, (int32_t*)c_out, rows, B, m, (long long*)clocks,
+        (long long*)info);
+  }
+  return (int)cudaGetLastError();
+}
 """
 LANES = 32
 CHAIN_MEMBERS = 6
+STEPS = ("double_step", "madd_step")
 # the teams of fq12_team_block: kernel -> (bn_phases' kernel index, members,
 # operand structs: an Fq12 element, an Fq2 (ell0), two Fq2 (scaled))
 TEAMS = {
@@ -227,7 +283,7 @@ def main():
         sys.exit("needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("batches", type=int, nargs="*", default=[32, 8192])
-    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"], default="fq12_mul")
+    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"] + list(STEPS), default="fq12_mul")
     ap.add_argument("--n", type=int, default=5, help="squarings of the chain")
     args = ap.parse_args()
     card = smi("name,power.limit")
@@ -243,6 +299,8 @@ def main():
     lib = ctypes.CDLL(str(so))
     if args.kernel == "fq12_cyclo_sq_chain":
         chain_phases(lib, args.batches, args.n, card)
+    elif args.kernel in STEPS:
+        step_phases(lib, args.kernel, args.batches, card)
     else:
         team_phases(lib, args.kernel, args.batches, card)
 
@@ -340,6 +398,60 @@ def chain_phases(lib, batches, n, card):
                 "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
                 "sm_clock_after": sm_clock, "equals_fq12_cyclo_sq_chain": same if products else None, "card": card,
             }), flush=True)
+
+
+def step_phases(lib, kernel, batches, card):
+    fn = lib.bn_step_phases
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
+        ctypes.POINTER(ctypes.c_uint32)] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    madd = kernel == "madd_step"
+    shape = (ctypes.c_int * 2)()
+    lib.bn_step_shape(int(madd), shape)
+    members, levels = shape
+    marks = 3 + 2 * levels
+    package = tc.madd_step if madd else tc.double_step
+    words, inv32 = mc._mod_args(P.Q)
+    (twist_b,) = tc._step_const_args()
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    med = lambda x: [float(v) for v in np.median(x, axis=0)]  # noqa: E731  over blocks
+    for batch in batches:
+        ins = random_operands(rng, [(3, 2), (2, 2)] if madd else [(3, 2)], batch, dev)
+        r_out, c_out = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+        blocks = (batch + LANES - 1) // LANES
+        clocks = torch.zeros((blocks, members, marks), dtype=torch.int64, device=dev)
+        info = torch.zeros((blocks, 3), dtype=torch.int64, device=dev)  # multiprocessor, start ns, end ns
+        ms = {True: []}
+
+        def launch(_):
+            return fn(int(madd), ins[0].data_ptr(), ins[-1].data_ptr(), r_out.data_ptr(), c_out.data_ptr(), 1, batch,
+                      twist_b, words, inv32, clocks.data_ptr(), info.data_ptr(), stream)
+
+        c = timed_runs(launch, clocks, ms, True)  # (blocks, warps, marks)
+        nfo = info.cpu().numpy().copy()
+        same = all(torch.equal(g, w) for g, w in zip((r_out, c_out), package(*ins)))
+        sm_clock = smi("clocks.sm")
+        # level l: from the previous barrier's release (mark 1 + 2l) to the warp's arrival (2 + 2l)
+        work = np.stack([c[:, :, 2 + 2 * lv] - c[:, :, 1 + 2 * lv] for lv in range(levels)], axis=1)  # (blocks, levels, warps)
+        print(json.dumps({
+            "kernel": kernel, "batch": batch, "levels": levels, "ms": ms[True], "blocks": blocks,
+            "load_cycles": float(np.median(c[:, :, 1].max(axis=1) - c[:, :, 0].min(axis=1))),
+            "level_cycles_slowest_warp": med(work.max(axis=2)),
+            "level_cycles_mean_warp": med(work.mean(axis=2)),
+            "level_cycles_by_warp": [med(work[:, lv, :]) for lv in range(levels)],
+            "barrier_wait_cycles": med(np.stack([c[:, :, 3 + 2 * lv].max(axis=1) - c[:, :, 2 + 2 * lv].max(axis=1)
+                                                 for lv in range(levels)], axis=1)),
+            "final_store_cycles_slowest_warp": float(np.median((c[:, :, -1] - c[:, :, -2]).max(axis=1))),
+            "block_cycles": float(np.median(c[:, :, -1].max(axis=1) - c[:, :, 0].min(axis=1))),
+            "block_us": float(np.median(nfo[:, 2] - nfo[:, 1])) / 1e3,
+            "sm_clock_ghz_in_run": float(np.median((c[:, 0, -1] - c[:, 0, 0]) / (nfo[:, 2] - nfo[:, 1]))),
+            "kernel_span_us": float(nfo[:, 2].max() - nfo[:, 1].min()) / 1e3,
+            "multiprocessors_used": int(len(np.unique(nfo[:, 0]))),
+            "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
+            "sm_clock_after": sm_clock, f"equals_{kernel}": same, "card": card,
+        }), flush=True)
 
 
 def team_phases(lib, kernel, batches, card):

@@ -10,7 +10,8 @@ SQ_THREAD_SOURCE), __launch_bounds__ for 2 blocks a multiprocessor, also
 against the team with registers for one block; fq12_cyclo_sq_chain (6 warps, __launch_bounds__ for 2 blocks
 a multiprocessor; CHAIN_THREAD_SOURCE), also against the team with registers
 for 3 blocks and the team with the product inlined, at n = 1, 2 and 5
-squarings.
+squarings; double_step and madd_step (4 warps on 32 elements, __launch_bounds__
+for 2 blocks a multiprocessor; STEP_THREAD_SOURCE, one source for both).
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -23,7 +24,8 @@ c, b, a), and whether every variant returns the first one's limbs.
 With --pairing it then times `ate.pairing_batch` at B = 8192 with the
 package's build of each picked team kernel swapped for its one-thread build,
 one kernel at a time, and, when fq12_mul024_pre and fq12_sq are both picked,
-the two together (the Miller loop's two kernels), in turns (team, thread,
+the two together (the Miller loop's two kernels), likewise double_step with
+madd_step (the precompute's two), in turns (team, thread,
 thread, team), in the three configurations of
 tools/torch_pairing_profile.py, and prints one JSON line per build and
 configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
@@ -89,6 +91,10 @@ OWN_VARIANTS = {
         "team_inline": [],
         "team_3_blocks": ["-DBN_MUL_OUT_OF_LINE", "-DBN_CYCLO_MIN_BLOCKS=3"],
     },
+    **{step: {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+    } for step in ("double_step", "madd_step")},
 }
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
@@ -227,15 +233,109 @@ extern "C" int bn_fq12_cyclo_sq_chain(const void* a, void* o, long long rows, lo
   return (int)cudaGetLastError();
 }
 """
+STEP_THREAD_SOURCE = r"""
+// double_step and madd_step as one thread per element, 64 threads a block: the
+// design of csrc/kernels_g2_step.cu before its teams, the baseline the teams
+// are timed against, with the same entries and kernel names.  One thread
+// loads its running point (and base), runs g2_double_step / g2_madd_step of
+// tower.cuh in registers and stores the new point and the line.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_double_step(const int32_t* __restrict__ r, int32_t* __restrict__ r_out, int32_t* __restrict__ c_out,
+              int64_t rows, int64_t B, Fq two_inv, Fq2 twist_b, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 6 * BN_NLIMB * B + (t % B);
+  G2Proj p = g2_load(r + off, B);
+  EllCoeffs c;
+  g2_double_step(p, c, two_inv, twist_b, m);
+  g2_store(r_out + off, B, p);
+  ell_store(c_out + off, B, c);
+}
+
+__global__ void __launch_bounds__(64)
+k_madd_step(const int32_t* __restrict__ r, const int32_t* __restrict__ base, int32_t* __restrict__ r_out,
+            int32_t* __restrict__ c_out, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t row = t / B, b = t % B;
+  int64_t off = row * 6 * BN_NLIMB * B + b;
+  const int32_t* bp = base + row * 4 * BN_NLIMB * B + b;
+  G2Proj p = g2_load(r + off, B);
+  EllCoeffs c;
+  g2_madd_step(p, c, fq2_load(bp, B), fq2_load(bp + 2 * BN_NLIMB * B, B), m);
+  g2_store(r_out + off, B, p);
+  ell_store(c_out + off, B, c);
+}
+
+static inline Fq bn_make_fq(const uint32_t* words) {
+  Fq r;
+  for (int i = 0; i < BN_NW; i++) r.w[i] = words[i];
+  return r;
+}
+
+// The Montgomery form of 1/2, 2^255 mod q (R = 2^256): 1 doubled 255 times
+// modulo q, on the host.  q < 2^254, so a doubling never carries out.
+static Fq bn_two_inv_mont(const uint32_t* q) {
+  Fq x = {};
+  x.w[0] = 1;
+  for (int k = 0; k < 255; k++) {
+    uint32_t carry = 0;
+    for (int i = 0; i < BN_NW; i++) {
+      const uint32_t hi = x.w[i] >> 31;
+      x.w[i] = (x.w[i] << 1) | carry;
+      carry = hi;
+    }
+    int ge = 1;  // x >= q, from the top word down
+    for (int i = BN_NW - 1; i >= 0; i--)
+      if (x.w[i] != q[i]) {
+        ge = x.w[i] > q[i];
+        break;
+      }
+    if (!ge) continue;
+    uint64_t borrow = 0;
+    for (int i = 0; i < BN_NW; i++) {
+      const uint64_t d = (uint64_t)x.w[i] - q[i] - borrow;
+      x.w[i] = (uint32_t)d;
+      borrow = d >> 63;
+    }
+  }
+  return x;
+}
+
+extern "C" int bn_double_step(const void* r, void* r_out, void* c_out, long long rows, long long B,
+                              const uint32_t* twist_b, const uint32_t* mod, uint32_t inv, void* stream) {
+  Fq2 tb;
+  tb.c0 = bn_make_fq(twist_b);
+  tb.c1 = bn_make_fq(twist_b + BN_NW);
+  k_double_step<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)r, (int32_t*)r_out, (int32_t*)c_out, rows, B, bn_two_inv_mont(mod), tb,
+      bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bn_madd_step(const void* r, const void* base, void* r_out, void* c_out, long long rows,
+                            long long B, const uint32_t* mod, uint32_t inv, void* stream) {
+  k_madd_step<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)r, (const int32_t*)base, (int32_t*)r_out, (int32_t*)c_out, rows, B,
+      bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
     ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
     ("fq12_mul024_pre", "thread"): MUL024_THREAD_SOURCE,
     ("fq12_sq", "thread"): SQ_THREAD_SOURCE,
     ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE,
+    ("double_step", "thread"): STEP_THREAD_SOURCE,
+    ("madd_step", "thread"): STEP_THREAD_SOURCE,
 }
 PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
-MILLER_LOOP_TEAMS = ("fq12_mul024_pre", "fq12_sq")  # swapped together too when both are picked
+# swapped together too when both are picked: the Miller loop's two teams, the precompute's two
+TEAM_PAIRS = (("fq12_mul024_pre", "fq12_sq"), ("double_step", "madd_step"))
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
@@ -344,7 +444,7 @@ def main():
             smem = [m.group(1) if (m := re.search(r"(\d+) bytes smem", line)) else 0 for line in used]  # absent: 0
             spills = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
             print(json.dumps({
-                "kernel": label, "variant": var, "batch": batch, "own_args": list(own), "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
+                "kernel": label, "variant": var, "batch": batch, "own_args": [x if isinstance(x, int) else list(x) for x in own], "ms": ms[var], "nvcc_s_upper_bound": round(secs[stem, var], 1),
                 "registers": [int(r) for r in regs], "shared_bytes_static": [int(x) for x in smem],
                 "stack_spillstore_spillload_bytes": [[int(x) for x in s] for s in spills],
                 "same_result": bool(torch.equal(outs[var], outs[variants[0]])), "card": card,
@@ -352,8 +452,7 @@ def main():
 
     if args.pairing:
         swaps = [(k,) for k in OWN_VARIANTS if k in picked]
-        if all(k in picked for k in MILLER_LOOP_TEAMS):
-            swaps.append(MILLER_LOOP_TEAMS)
+        swaps += [pair for pair in TEAM_PAIRS if all(k in picked for k in pair)]
         for kernels in swaps:
             time_pairing(kernels, {var: {k: libs[build.ENTRIES[k][0], var] for k in kernels}
                                    for var in PAIRING_VARIANTS}, card)
