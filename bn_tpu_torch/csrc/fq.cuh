@@ -28,6 +28,9 @@
 
 #define BN_NW 8      // 32-bit words of a field element
 #define BN_NLIMB 16  // 16-bit limbs of a field element in memory
+// Elements a block of a team or group kernel works on: one per lane of a
+// warp (fq12_team.cuh, fq12_cyclo_team.cuh, g2_step_team.cuh, fq_group.cuh).
+#define BN_TEAM_LANES 32
 
 struct Fq {
   uint32_t w[BN_NW];

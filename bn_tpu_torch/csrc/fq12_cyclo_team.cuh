@@ -1,6 +1,9 @@
 // The Granger-Scott cyclotomic squaring split over a team of 6 members, for
-// kernels that give one Fq12 element to several warps and keep it in shared
-// memory for a whole run of squarings (kernel_fq12_cyclo_sq_chain.cu).
+// kernels that give one Fq12 element to several warps: the chain, which keeps
+// the element in shared memory for a whole run of squarings
+// (kernel_fq12_cyclo_sq_chain.cu), and the single squaring, which runs the
+// same members and combines on the product teams' one-barrier skeleton and
+// reads the element from device memory (kernel_fq12_cyclo_sq.cu).
 //
 // Slots.  The element's six Fq2 coefficients c{k/3}.c{k%3}, k = 0..5 in
 // memory order, are the state's slots; fq12_cyclo_sq (tower.cuh) names them
@@ -43,10 +46,8 @@
 BN_DEV int fq12_cyclo_u(int p) { return p == 0 ? 0 : p == 1 ? 3 : 1; }
 BN_DEV int fq12_cyclo_v(int p) { return p == 0 ? 4 : p == 1 ? 2 : 5; }
 
-// Member w's two Fq2 operands, read from the state.
-BN_DEV void fq12_cyclo_operands(int w, const uint32_t* state, int stride, const Mod& m, Fq2& x, Fq2& y) {
-  const int p = w / 2;
-  const Fq2 zu = fq2_tab_load(state, stride, fq12_cyclo_u(p)), zv = fq2_tab_load(state, stride, fq12_cyclo_v(p));
+// Member w's two Fq2 operands from its pair's zu and zv.
+BN_DEV void fq12_cyclo_operands(int w, const Fq2& zu, const Fq2& zv, const Mod& m, Fq2& x, Fq2& y) {
   if (w % 2 == 0) {  // tmp
     x = zu;
     y = zv;
@@ -56,18 +57,24 @@ BN_DEV void fq12_cyclo_operands(int w, const uint32_t* state, int stride, const 
   }
 }
 
-BN_DEV Fq2 fq12_cyclo_member(int w, const uint32_t* state, int stride, const Mod& m) {
+BN_DEV Fq2 fq12_cyclo_pair_product(int w, const Fq2& zu, const Fq2& zv, const Mod& m) {
   Fq2 x, y;
-  fq12_cyclo_operands(w, state, stride, m, x, y);
+  fq12_cyclo_operands(w, zu, zv, m, x, y);
   return fq2_mul(x, y, m);
 }
 
-// New slot c from the products in the scratch and old slot c in the state:
+// Member w with its operands read from the state.
+BN_DEV Fq2 fq12_cyclo_member(int w, const uint32_t* state, int stride, const Mod& m) {
+  const int p = w / 2;
+  return fq12_cyclo_pair_product(w, fq2_tab_load(state, stride, fq12_cyclo_u(p)),
+                                 fq2_tab_load(state, stride, fq12_cyclo_v(p)), m);
+}
+
+// New slot c from the products in the scratch and old slot c, z:
 // 3t - 2z (fq2_m3_sub) for c < 3, 3t + 2z (fq2_m3_add) for the rest.
-BN_DEV Fq2 fq12_cyclo_combine(int c, const uint32_t* prods, const uint32_t* state, int stride, const Mod& m) {
+BN_DEV Fq2 fq12_cyclo_combine_z(int c, const uint32_t* prods, int stride, const Fq2& z, const Mod& m) {
   const int p = c < 3 ? c : (c + 2) % 3;
   const Fq2 tmp = fq2_tab_load(prods, stride, 2 * p);
-  const Fq2 z = fq2_tab_load(state, stride, c);
   Fq2 t, r;
   if (c < 3) {
     t = team_sub(team_sub(fq2_tab_load(prods, stride, 2 * p + 1), tmp, m), team_xi(tmp, m), m);
@@ -79,6 +86,35 @@ BN_DEV Fq2 fq12_cyclo_combine(int c, const uint32_t* prods, const uint32_t* stat
   }
   return team_add(team_add(r, r, m), t, m);
 }
+
+// The same with old slot c read from the state.
+BN_DEV Fq2 fq12_cyclo_combine(int c, const uint32_t* prods, const uint32_t* state, int stride, const Mod& m) {
+  return fq12_cyclo_combine_z(c, prods, stride, fq2_tab_load(state, stride, c), m);
+}
+
+// One squaring on the product teams' skeleton (fq12_team_block in
+// fq12_team.cuh, kernel_fq12_cyclo_sq.cu): the members read their pair and
+// the combines their old slot straight from the element in device memory, a
+// (rows, 2, 3, 2, 16, B) tensor, so the element makes no round trip through
+// a shared state and the block needs one barrier.
+BN_DEV Fq2 fq12_cyclo_slot(const int32_t* a, int64_t e, int64_t B, int k) {
+  return fq2_load(a + fq12_offset(e, B) + (int64_t)k * 2 * BN_NLIMB * B, B);
+}
+
+struct Fq12CycloSqMember {
+  const int32_t* a;
+  BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
+    const int p = w / 2;
+    return fq12_cyclo_pair_product(w, fq12_cyclo_slot(a, e, B, fq12_cyclo_u(p)), fq12_cyclo_slot(a, e, B, fq12_cyclo_v(p)), m);
+  }
+};
+
+struct Fq12CycloSqCombine {
+  const int32_t* a;
+  BN_DEV Fq2 operator()(int c, int64_t e, int64_t B, const uint32_t* prods, int stride, const Mod& m) const {
+    return fq12_cyclo_combine_z(c, prods, stride, fq12_cyclo_slot(a, e, B, c), m);
+  }
+};
 
 #ifdef __CUDACC__
 // The block of the chain's team: 6 warps, lane l of warp w on element

@@ -80,7 +80,7 @@ struct Fq12Mul024Member {
 
 // New coefficient z_c from the 13 products in the scratch.
 struct Fq12Mul024Combine {
-  BN_DEV Fq2 operator()(int c, const uint32_t* prods, int stride, const Mod& m) const {
+  BN_DEV Fq2 operator()(int c, int64_t, int64_t, const uint32_t* prods, int stride, const Mod& m) const {
     const Fq2 d0 = fq2_tab_load(prods, stride, 0), d2 = fq2_tab_load(prods, stride, 1),
               d4 = fq2_tab_load(prods, stride, 2);
     if (c == 2)

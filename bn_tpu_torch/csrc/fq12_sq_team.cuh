@@ -56,7 +56,7 @@ struct Fq12SqMember {
 
 // Output coefficient c from the 12 products in the scratch.
 struct Fq12SqCombine {
-  BN_DEV Fq2 operator()(int c, const uint32_t* prods, int stride, const Mod& m) const {
+  BN_DEV Fq2 operator()(int c, int64_t, int64_t, const uint32_t* prods, int stride, const Mod& m) const {
     if (c >= 3) {  // out.c1 = 2 ab
       Fq2 t;
       if (c == 3)

@@ -38,7 +38,6 @@
 
 #define BN_TEAM_MEMBERS 18  // Fq2 products of one Fq12 product
 #define BN_TEAM_COMBINES 6  // Fq2 coefficients of the result
-#define BN_TEAM_LANES 32    // elements a team kernel's block works on: one per lane
 
 // The team's Fq2 additions and xi are calls, not inlined copies.  A member's
 // loads and pre-sums and a combine are straight-line code that each warp runs
@@ -166,7 +165,8 @@ BN_DEV Fq2 fq12_line_x(const int32_t* ell0, const int32_t* scaled, int64_t e, in
 }
 
 // The product's member and combine as the skeleton calls them: the member
-// gets the element's index and loads its own operands.
+// gets the element's index and loads its own operands; the combine gets it
+// too, and the product's reads only the scratch.
 struct Fq12MulMember {
   const int32_t* a;
   const int32_t* b;
@@ -177,7 +177,7 @@ struct Fq12MulMember {
 };
 
 struct Fq12MulCombine {
-  BN_DEV Fq2 operator()(int c, const uint32_t* prods, int stride, const Mod& m) const {
+  BN_DEV Fq2 operator()(int c, int64_t, int64_t, const uint32_t* prods, int stride, const Mod& m) const {
     return fq12_mul_combine(c, prods, stride, m);
   }
 };
@@ -188,10 +188,11 @@ struct TeamNoMarks {
 };
 
 // The block of a team kernel of MEMBERS warps (kernel_fq12_mul.cu,
-// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu), in the lane layout above:
-// member(w, e, B, m) computes member w's Fq2 product for element e into the
-// scratch, and after one barrier warps 0-5 each store
-// combine(c, scratch, 32, m) as output coefficient c of element e.  A lane past
+// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu, kernel_fq12_cyclo_sq.cu), in
+// the lane layout above: member(w, e, B, m) computes member w's Fq2 product
+// for element e into the scratch, and after one barrier warps 0-5 each store
+// combine(c, e, B, scratch, 32, m) as output coefficient c of element e (e
+// and B for a combine that also reads the element's operand).  A lane past
 // the end clamps its element to the last one, computes with the others and
 // skips the store: no thread leaves before the barrier.  `marks(i)` is called
 // at the start (0), after the member's store (1), after the barrier (2) and
@@ -213,7 +214,7 @@ __device__ __forceinline__ void fq12_team_block(int32_t* __restrict__ o, int64_t
   __syncthreads();
   marks(2);
   if (w < BN_TEAM_COMBINES && live)
-    fq2_store(o + fq12_offset(e, B) + (int64_t)w * 2 * BN_NLIMB * B, B, combine(w, mine, BN_TEAM_LANES, m));
+    fq2_store(o + fq12_offset(e, B) + (int64_t)w * 2 * BN_NLIMB * B, B, combine(w, e, B, mine, BN_TEAM_LANES, m));
   marks(3);
 }
 #endif

@@ -25,13 +25,15 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape; the six team kernels, `fq12_mul`,
-    `fq12_sq`, `fq12_mul024_pre`, the chain, `double_step` and `madd_step`,
-    are also held at B = 37, lead 3 (blocks of 32 that straddle the rows),
-    and their rows give the block of their launch at the timed shape
-    (threads, elements) and the loaded kernel's static shared memory
-    (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5 beside
-    n = 2;
+    kernel's bound at the timed shape; the eight kernels that give 32
+    elements to a block, the teams `fq12_mul`, `fq12_sq`, `fq12_mul024_pre`,
+    the chain, `fq12_cyclo_sq`, `double_step` and `madd_step` and the group
+    kernel `pow_fixed`, are also held at B = 37, lead 3 (blocks of 32 that
+    straddle the rows; `pow_fixed` for both moduli and both exponents, against
+    Python's pow too), and their rows give the block of their launch at the
+    timed shape (threads, elements) and the loaded kernel's static shared
+    memory (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5
+    beside n = 2;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
@@ -137,7 +139,8 @@ CURVE_KERNELS = {
 }
 # kernels whose C source also has bn_<name>_launch: the block of a launch.
 # These give 32 elements to a block, so they are also held at B_STRADDLE.
-TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq_chain", "double_step", "madd_step")
+TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12_cyclo_sq_chain",
+                "double_step", "madd_step", "pow_fixed")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches

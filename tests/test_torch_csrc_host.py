@@ -15,8 +15,13 @@ as its shared memory for the whole run, each squaring 6 members into a
 scratch, then 6 combines in place), and for double_step and madd_step the
 teams of csrc/g2_step_team.cuh as kernels_g2_step.cu schedules them (the
 step's values in a state laid out as its shared memory, 4 members a level,
-the outputs stored at the levels the schedule names); that the kernels build
-and launch is what chip_smoke.py checks on the card.
+the outputs stored at the levels the schedule names), for the single
+cyclotomic squaring the chain's members and combines on fq12_team_block
+(kernel_fq12_cyclo_sq.cu), and for pow_fixed the group of csrc/fq_group.cuh
+(one Montgomery product split over T = 4 or 8 lanes, the lanes run phase by
+phase between their exchanges, in lane order and reversed, from poisoned
+values); that the kernels build and launch is what chip_smoke.py checks on
+the card.
 Tolerance: none, the limbs are compared exactly.
 """
 
@@ -45,6 +50,9 @@ _OPS = [
     "fq12_mul_team", "fq12_mul_team_reverse", "fq12_cyclo_team", "fq12_cyclo_team_reverse",
     "fq12_mul024_team", "fq12_mul024_team_reverse", "fq12_sq_team", "fq12_sq_team_reverse",
     "double_step_team", "double_step_team_reverse", "madd_step_team", "madd_step_team_reverse",
+    "fq12_cyclo_sq_team", "fq12_cyclo_sq_team_reverse",
+    "group_mul_4", "group_mul_4_reverse", "group_mul_8", "group_mul_8_reverse",
+    "group_pow_4", "group_pow_4_reverse", "group_pow_8", "group_pow_8_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -278,6 +286,130 @@ def test_header_step_teams_equal_plain(host_lib, kernel, batch, order):
     extra = list(tc._step_const_args()[0]) if kernel == "double_step" else ()
     got = _run_host(host_lib, name, ins, TP.Q, extra=extra, two_outputs=True)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _cyclo_sq_case(batch):
+    """The single squaring's operand at lead 3 and batch `batch`, edge values
+    at both ends of the flat batch, and the plain version's result."""
+    a = _with_edge_tail(rand_field(365, (3, 2, 3, 2, batch)))
+    return a, tc.fq12_cyclo_sq_plain(*_tensors([a]), TP.Q).numpy()
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [5, 37, 64])
+def test_header_cyclo_sq_team_equals_plain(host_lib, batch, order):
+    """kernel_fq12_cyclo_sq.cu's team at lead 3: the chain's 6 members and
+    combines on fq12_team_block, the members reading their pair and the
+    combines their old slot from the operand itself.  B = 5: one ragged block
+    holds all 15 elements; B = 37: blocks straddle the rows; B = 64: none
+    does.  Members and combines in order and last to first, the scratch
+    poisoned every block; equal to the plain version and to tower.cuh's
+    one-thread formula."""
+    a, want = _cyclo_sq_case(batch)
+    name = "fq12_cyclo_sq_team" + ("_reverse" if order == "reverse" else "")
+    got = _run_host(host_lib, name, [a], TP.Q)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _run_host(host_lib, "fq12_cyclo_sq", [a], TP.Q))
+
+
+ZERO_DIGIT_EXPONENT = 0xA0B7F03  # chip_smoke.py's: a short exponent with a zero digit inside
+FOUR_DIGIT_EXPONENT = 0xB0F1
+
+
+def _limbs(vals):
+    """Values as a (1, 16, n) limb array, one element a lane."""
+    return TP.ints_to_limbs(vals).astype(np.int64)[None]
+
+
+def _cios_t(a, b, modulus):
+    """What CIOS holds before its final subtraction, (ab + mu m) / R with
+    mu = -ab / m mod R: in [0, 2m)."""
+    mu = (-a * b * pow(modulus, -1, TP.R_MONT)) % TP.R_MONT
+    return (a * b + mu * modulus) // TP.R_MONT
+
+
+@functools.lru_cache(maxsize=None)
+def _group_mul_pairs(modulus):
+    """Operand pairs for the group product, as two (1, 16, n) limb arrays:
+    (1) every pair of the edge values 0, 1, 2, R mod m, m-1, m-2, values
+    whose low k words are 0xffffffff (2^32k - 1, and m's top words less one
+    above them) and values with one 0xffffffff word elsewhere; (2) for
+    results r with runs of 0xffffffff or zero words, and each of three b,
+    a = r R / b, so that t or t - m carries or borrows through whole lanes;
+    (3) the 64 pairs of a seeded search with the largest t, where the final
+    subtraction is taken and t is close to 2m, and 16 with t just below m.
+    t < 2m < 2^255, so no pair takes t to 2^256."""
+    m, R = modulus, TP.R_MONT
+    edges = [0, 1, 2, R % m, m - 1, m - 2]
+    edges += [(1 << (32 * k)) - 1 for k in range(1, 8)]
+    edges += [((m >> (32 * k)) << (32 * k)) - 1 for k in range(1, 8)]
+    edges += [0xFFFFFFFF << (32 * j) for j in range(1, 7)]
+    pairs = [(x, y) for x in edges for y in edges]
+    results = [(1 << (32 * k)) - 1 for k in range(1, 8)] + [(m >> (32 * k)) << (32 * k) for k in range(1, 8)]
+    results += [m - (1 << (32 * k)) for k in range(1, 8)] + [1 << (32 * k) for k in range(1, 8)]
+    for r in results:
+        for b in (1, m - 1, 0xFFFFFFFF << 96):
+            pairs.append((r * R * pow(b, -1, m) % m, b))
+    rng = np.random.default_rng(395)
+    found = []
+    for _ in range(20000):
+        x, y = (int.from_bytes(rng.bytes(40), "big") % m for _ in range(2))
+        found.append((_cios_t(x, y, m), x, y))
+    found.sort()
+    below_m = [f for f in found if f[0] < m][-16:]
+    pairs += [(x, y) for _, x, y in found[-64:] + below_m]
+    assert max(_cios_t(x, y, m) for x, y in pairs) >= m
+    a, b = zip(*pairs)
+    return _limbs(list(a)), _limbs(list(b))
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
+def test_header_group_mul_equals_one_thread_product_and_python(host_lib, modulus, lanes, order):
+    """fq_group_mul on a group of 4 or 8 lanes, lanes run in order and last
+    to first from poisoned values, against fq_mont_mul_inline and against
+    Python's integers on the pairs of _group_mul_pairs."""
+    a, b = _group_mul_pairs(modulus)
+    name = f"group_mul_{lanes}" + ("_reverse" if order == "reverse" else "")
+    got = _run_host(host_lib, name, [a, b], modulus)
+    assert np.array_equal(got, _run_host(host_lib, "mont_mul", [a, b], modulus))
+    r_inv = pow(TP.R_MONT, -1, modulus)
+    want = [x * y * r_inv % modulus for x, y in zip(TP.limbs_to_ints(a[0]), TP.limbs_to_ints(b[0]))]
+    assert TP.limbs_to_ints(got[0]) == want
+
+
+@functools.lru_cache(maxsize=None)
+def _group_pow_case(modulus, exponent, batch):
+    """The ladder's operand at lead 3 and batch `batch`, 0, 1, m-1 and the
+    Montgomery one at both ends of the flat batch, its exponent, and the
+    plain version's result."""
+    e = modulus - 2 if exponent == "m-2" else exponent
+    a = _with_edge_tail(rand_field(390, (3, batch), modulus), modulus)
+    return a, e, mc.pow_fixed_plain(*_tensors([a]), e, modulus).numpy()
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("batch", [5, 37])
+@pytest.mark.parametrize("exponent", ["m-2", ZERO_DIGIT_EXPONENT, FOUR_DIGIT_EXPONENT],
+                         ids=["fermat", "interior-zero-digit", "four-digits"])
+@pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
+def test_header_group_pow_equals_plain_and_python_pow(host_lib, modulus, exponent, batch, lanes, order):
+    """fq_group_pow, kernel_pow_fixed.cu's ladder, on groups of 4 or 8 lanes
+    with the table laid out as the kernel's shared memory, at lead 3: q - 2
+    or r - 2, a short exponent with a zero digit inside and one of four
+    digits; against the plain version and Python's pow on every lane."""
+    a, e, want = _group_pow_case(modulus, exponent, batch)
+    name = f"group_pow_{lanes}" + ("_reverse" if order == "reverse" else "")
+    extra = TP.int_to_words(e) + TP.int_to_words(TP.R_MONT % modulus)
+    got = _run_host(host_lib, name, [a], modulus, n=len(mc.digit_schedule(e)), extra=extra)
+    assert np.array_equal(got, want)
+    for row_in, row_out in zip(a, got):  # Montgomery domain: v stands for v/R
+        vals = [TP.from_mont(v, modulus) for v in TP.limbs_to_ints(row_in)]
+        assert TP.limbs_to_ints(row_out) == [TP.to_mont(pow(v, e, modulus), modulus) for v in vals]
+    assert TP.limbs_to_ints(got[0])[0] == 0 and TP.limbs_to_ints(got[-1])[-4] == 0  # 0 -> 0
 
 
 def _run_host_curve(lib, group, coords):

@@ -1,12 +1,15 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, tower.cuh, fq12_team.cuh, fq12_mul024_team.cuh, fq12_sq_team.cuh,
-// fq12_cyclo_team.cuh, g2_step_team.cuh, curve.cuh are plain C++ when no CUDA
-// compiler is at work).
+// fq.cuh, fq_group.cuh, tower.cuh, fq12_team.cuh, fq12_mul024_team.cuh,
+// fq12_sq_team.cuh, fq12_cyclo_team.cuh, g2_step_team.cuh, curve.cuh are plain
+// C++ when no CUDA compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
+#include <string.h>
+
 #include "curve.cuh"
 #include "fq12_cyclo_team.cuh"
+#include "fq_group.cuh"
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
@@ -17,8 +20,95 @@ enum {
   OP_POW_FIXED, OP_FQ12_CYCLO_SQ_CHAIN, OP_DOUBLE_STEP, OP_MADD_STEP, OP_FQ12_MUL024,
   OP_FQ12_MUL_TEAM, OP_FQ12_MUL_TEAM_REVERSE, OP_FQ12_CYCLO_TEAM, OP_FQ12_CYCLO_TEAM_REVERSE,
   OP_FQ12_MUL024_TEAM, OP_FQ12_MUL024_TEAM_REVERSE, OP_FQ12_SQ_TEAM, OP_FQ12_SQ_TEAM_REVERSE,
-  OP_DOUBLE_STEP_TEAM, OP_DOUBLE_STEP_TEAM_REVERSE, OP_MADD_STEP_TEAM, OP_MADD_STEP_TEAM_REVERSE
+  OP_DOUBLE_STEP_TEAM, OP_DOUBLE_STEP_TEAM_REVERSE, OP_MADD_STEP_TEAM, OP_MADD_STEP_TEAM_REVERSE,
+  OP_FQ12_CYCLO_SQ_TEAM, OP_FQ12_CYCLO_SQ_TEAM_REVERSE,
+  OP_GROUP_MUL_4, OP_GROUP_MUL_4_REVERSE, OP_GROUP_MUL_8, OP_GROUP_MUL_8_REVERSE,
+  OP_GROUP_POW_4, OP_GROUP_POW_4_REVERSE, OP_GROUP_POW_8, OP_GROUP_POW_8_REVERSE
 };
+
+// The group of fq_group.cuh on the host: the T lanes of one group as arrays
+// of lane values, run phase by phase.  Every lane value starts poisoned (a
+// pattern that is no field element's word and no 0/1 predicate), each()
+// runs the lanes of a phase in lane order or, with `reverse`, last to first,
+// and the exchanges read the source lanes' entries between phases: a lane
+// that reads what no lane has produced yet, or a phase in which one lane's
+// work depends on another's, changes the result.
+template <int T>
+struct HostGroup {
+  static constexpr int LANES = T, W = BN_NW / T;
+  template <class V>
+  struct Lv {
+    V v[T];
+    Lv() { memset(v, 0xA5, sizeof v); }
+    V& operator[](int l) { return v[l]; }
+    const V& operator[](int l) const { return v[l]; }
+  };
+  bool reverse;
+  template <class F>
+  void each(F f) const {
+    for (int i = 0; i < T; i++) f(reverse ? T - 1 - i : i);
+  }
+  Lv<uint32_t> bcast(const Lv<uint32_t>& x, int src) const {
+    Lv<uint32_t> r;
+    each([&](int l) { r[l] = x[src]; });
+    return r;
+  }
+  Lv<uint32_t> rotate_down(const Lv<uint32_t>& x) const {
+    Lv<uint32_t> r;
+    each([&](int l) { r[l] = x[(l + 1) % T]; });
+    return r;
+  }
+  Lv<uint32_t> rotate_up(const Lv<uint32_t>& x) const {
+    Lv<uint32_t> r;
+    each([&](int l) { r[l] = x[(l + T - 1) % T]; });
+    return r;
+  }
+  uint32_t ballot(const Lv<uint32_t>& p) const {
+    uint32_t r = 0;
+    each([&](int l) { r |= (uint32_t)(p[l] != 0) << l; });
+    return r;
+  }
+};
+
+// kernel_pow_fixed.cu's group for every element of a (rows, 16, B) tensor,
+// one group after another: the product fq_group_mul of a and b (pow = 0) or
+// the ladder fq_group_pow of a with exponent e and the Montgomery one `one`,
+// its table in a plain array laid out as the kernel's shared memory, lane l
+// at offset l with stride T.
+template <int T>
+static void group_run(bool pow, bool reverse, const int32_t* a, const int32_t* b, int32_t* o, int64_t rows,
+                      int64_t B, const Exp& e, const uint32_t* one, const Mod& m) {
+  using G = HostGroup<T>;
+  using Words = typename G::template Lv<GWords<G::W>>;
+  const G g{reverse};
+  const GroupMod<G> gm = fq_group_mod(g, m);
+  for (int64_t t = 0; t < rows * B; t++) {
+    const int64_t off = (t / B) * BN_NLIMB * B + (t % B);
+    auto load = [&](const int32_t* p) {
+      const Fq v = fq_load(p + off, B);
+      Words r;
+      g.each([&](int l) {
+        for (int k = 0; k < G::W; k++) r[l].w[k] = v.w[l * G::W + k];
+      });
+      return r;
+    };
+    Words r;
+    if (pow) {
+      uint32_t tab[16 * BN_NW];
+      memset(tab, 0xA5, sizeof tab);
+      typename G::template Lv<uint32_t*> mine;
+      g.each([&](int l) { mine[l] = tab + l; });
+      r = fq_group_pow(g, load(a), fq_group_words(g, one), e, mine, T, gm);
+    } else {
+      r = fq_group_mul(g, load(a), load(b), gm);
+    }
+    Fq v;
+    g.each([&](int l) {
+      for (int k = 0; k < G::W; k++) v.w[l * G::W + k] = r[l].w[k];
+    });
+    fq_store(o + off, B, v);
+  }
+}
 
 // fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul.cu,
 // kernel_fq12_mul024_pre.cu and kernel_fq12_sq.cu, one block after another:
@@ -46,7 +136,7 @@ static void fq12_team(const Member& member, const Combine& combine, int32_t* o, 
       int c = reverse ? BN_TEAM_COMBINES - 1 - i : i;
       for (int lane = 0; lane < BN_TEAM_LANES && first + lane < n; lane++)
         fq2_store(o + fq12_offset(first + lane, B) + (int64_t)c * 2 * BN_NLIMB * B, B,
-                  combine(c, prods + lane, BN_TEAM_LANES, m));
+                  combine(c, first + lane, B, prods + lane, BN_TEAM_LANES, m));
     }
   }
 }
@@ -180,6 +270,26 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   }
   if (op == OP_FQ12_CYCLO_TEAM || op == OP_FQ12_CYCLO_TEAM_REVERSE) {
     fq12_cyclo_team(a, o, rows, B, n, m, op == OP_FQ12_CYCLO_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_FQ12_CYCLO_SQ_TEAM || op == OP_FQ12_CYCLO_SQ_TEAM_REVERSE) {  // kernel_fq12_cyclo_sq.cu's team
+    fq12_team<BN_CYCLO_MEMBERS>(Fq12CycloSqMember{a}, Fq12CycloSqCombine{a}, o, rows, B, m,
+                                op == OP_FQ12_CYCLO_SQ_TEAM_REVERSE);
+    return 0;
+  }
+  if (op >= OP_GROUP_MUL_4 && op <= OP_GROUP_POW_8_REVERSE) {  // pow: n = digit count, extra = e then one
+    const int k = op - OP_GROUP_MUL_4;
+    const bool pow = k >= 4, eight = k % 4 >= 2, reverse = k % 2;
+    Exp e = {};
+    if (pow) {
+      for (int i = 0; i < BN_NW; i++) e.w[i] = extra[i];
+      e.nd = n;
+    }
+    const uint32_t* one = pow ? extra + BN_NW : nullptr;
+    if (eight)
+      group_run<8>(pow, reverse, a, b, o, rows, B, e, one, m);
+    else
+      group_run<4>(pow, reverse, a, b, o, rows, B, e, one, m);
     return 0;
   }
   for (int64_t t = 0; t < rows * B; t++) {

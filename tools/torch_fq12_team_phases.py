@@ -170,7 +170,8 @@ extern "C" int bn_phases(int kernel, int products, const void* a, const void* b,
 struct CycloSumMember {
   __device__ __forceinline__ Fq2 operator()(int w, const uint32_t* state, int stride, const Mod& m) const {
     Fq2 x, y;
-    fq12_cyclo_operands(w, state, stride, m, x, y);
+    fq12_cyclo_operands(w, fq2_tab_load(state, stride, fq12_cyclo_u(w / 2)),
+                        fq2_tab_load(state, stride, fq12_cyclo_v(w / 2)), m, x, y);
     return fq2_add(x, y, m);
   }
 };

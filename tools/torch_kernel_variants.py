@@ -11,7 +11,11 @@ against the team with registers for one block; fq12_cyclo_sq_chain (6 warps, __l
 a multiprocessor; CHAIN_THREAD_SOURCE), also against the team with registers
 for 3 blocks and the team with the product inlined, at n = 1, 2 and 5
 squarings; double_step and madd_step (4 warps on 32 elements, __launch_bounds__
-for 2 blocks a multiprocessor; STEP_THREAD_SOURCE, one source for both).
+for 2 blocks a multiprocessor; STEP_THREAD_SOURCE, one source for both);
+fq12_cyclo_sq (6 warps on fq12_team_block, one barrier;
+CYCLO_SQ_THREAD_SOURCE), also against the chain's block at n = 1
+(CYCLO_SQ_CHAIN_BLOCK_SOURCE); pow_fixed (a group of 4 lanes an element,
+csrc/fq_group.cuh; POW_THREAD_SOURCE), also with groups of 8 lanes.
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -25,7 +29,8 @@ With --pairing it then times `ate.pairing_batch` at B = 8192 with the
 package's build of each picked team kernel swapped for its one-thread build,
 one kernel at a time, and, when fq12_mul024_pre and fq12_sq are both picked,
 the two together (the Miller loop's two kernels), likewise double_step with
-madd_step (the precompute's two), in turns (team, thread,
+madd_step (the precompute's two) and pow_fixed with fq12_cyclo_sq (the two
+redesigned together), in turns (team, thread,
 thread, team), in the three configurations of
 tools/torch_pairing_profile.py, and prints one JSON line per build and
 configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
@@ -38,7 +43,8 @@ machine with a GPU and nvcc:
 where the optional labels (e.g. fq12_mul) pick kernels, all by default, and
 --batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
 32 is one block of a team alone on the card; 132 * 32 = 4224 one block on
-each multiprocessor, 8448 two.
+each multiprocessor, 8448 two; for pow_fixed, 16384 is the two inversions of
+`to_affine` in one launch.
 """
 
 import argparse
@@ -95,6 +101,16 @@ OWN_VARIANTS = {
         "team": ["-DBN_MUL_OUT_OF_LINE"],
         "thread": ["-DBN_MUL_OUT_OF_LINE"],
     } for step in ("double_step", "madd_step")},
+    "fq12_cyclo_sq": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_chain_block": ["-DBN_MUL_OUT_OF_LINE"],
+    },
+    "pow_fixed": {
+        "team": [],  # groups of 4 lanes
+        "thread": [],
+        "lanes_8": ["-DBN_POW_LANES=8"],
+    },
 }
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
@@ -324,6 +340,86 @@ extern "C" int bn_madd_step(const void* r, const void* base, void* r_out, void* 
   return (int)cudaGetLastError();
 }
 """
+CYCLO_SQ_THREAD_SOURCE = r"""
+// fq12_cyclo_sq as one thread per element, 64 threads a block: the design of
+// csrc/kernel_fq12_cyclo_sq.cu before its team, the baseline the team is
+// timed against, with the same entry and kernel name.  One thread runs
+// fq12_cyclo_sq of tower.cuh, 18 products, in registers.
+#include "launch.cuh"
+#include "tower.cuh"
+
+__global__ void __launch_bounds__(64)
+k_fq12_cyclo_sq(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * 12 * BN_NLIMB * B + (t % B);
+  fq12_store(o + off, B, fq12_cyclo_sq(fq12_load(a + off, B), m));
+}
+
+extern "C" int bn_fq12_cyclo_sq(const void* a, void* o, long long rows, long long B,
+                                const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_cyclo_sq<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+CYCLO_SQ_CHAIN_BLOCK_SOURCE = r"""
+// fq12_cyclo_sq as the squaring chain's block at n = 1 (fq12_cyclo_team_block
+// of csrc/fq12_cyclo_team.cuh): the element loaded into a shared state, the 6
+// members, the combines in place, the store; three barriers.  The other way
+// to build the single squaring's team, timed against the package's.
+#include "launch.cuh"
+#include "fq12_cyclo_team.cuh"
+
+__global__ void __launch_bounds__(BN_CYCLO_BLOCK, BN_CYCLO_MIN_BLOCKS)
+k_fq12_cyclo_sq(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  TeamNoMarks marks;
+  fq12_cyclo_team_block(a, o, rows, B, 1, m, Fq12CycloMember(), marks);
+}
+
+extern "C" int bn_fq12_cyclo_sq(const void* a, void* o, long long rows, long long B,
+                                const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_cyclo_sq<<<bn_grid(rows * B, BN_TEAM_LANES), BN_CYCLO_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+POW_THREAD_SOURCE = r"""
+// pow_fixed as one thread per element, 64 threads a block: the design of
+// csrc/kernel_pow_fixed.cu before its group, the baseline the group is timed
+// against, with the same entry and kernel name.  One thread runs the whole
+// window-4 ladder (fq_pow_fixed of fq.cuh, the product inlined), its table in
+// 32 KB of static shared memory as [entry][word][thread].
+#include "launch.cuh"
+
+#define BN_BLOCK_POW 64
+
+__global__ void __launch_bounds__(BN_BLOCK_POW)
+k_pow_fixed(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Exp e,
+            Fq one, Mod m) {
+  __shared__ uint32_t tab[16 * BN_NW * BN_BLOCK_POW];
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * BN_NLIMB * B + (t % B);
+  Fq r = fq_pow_fixed(fq_load(a + off, B), one, e, tab + threadIdx.x, BN_BLOCK_POW, m);
+  fq_store(o + off, B, r);
+}
+
+extern "C" int bn_pow_fixed(const void* a, void* o, long long rows, long long B, const uint32_t* exp,
+                            int nd, const uint32_t* one, const uint32_t* mod, uint32_t inv,
+                            void* stream) {
+  Exp e;
+  Fq one_;
+  for (int i = 0; i < BN_NW; i++) {
+    e.w[i] = exp[i];
+    one_.w[i] = one[i];
+  }
+  e.nd = nd;
+  k_pow_fixed<<<bn_grid(rows * B, BN_BLOCK_POW), BN_BLOCK_POW, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (int32_t*)o, rows, B, e, one_, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
     ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
@@ -332,10 +428,14 @@ OWN_SOURCES = {
     ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE,
     ("double_step", "thread"): STEP_THREAD_SOURCE,
     ("madd_step", "thread"): STEP_THREAD_SOURCE,
+    ("fq12_cyclo_sq", "thread"): CYCLO_SQ_THREAD_SOURCE,
+    ("fq12_cyclo_sq", "team_chain_block"): CYCLO_SQ_CHAIN_BLOCK_SOURCE,
+    ("pow_fixed", "thread"): POW_THREAD_SOURCE,
 }
 PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
-# swapped together too when both are picked: the Miller loop's two teams, the precompute's two
-TEAM_PAIRS = (("fq12_mul024_pre", "fq12_sq"), ("double_step", "madd_step"))
+# swapped together too when both are picked: the Miller loop's two teams, the precompute's two,
+# the Fermat inversion's group with the single cyclotomic squaring
+TEAM_PAIRS = (("fq12_mul024_pre", "fq12_sq"), ("double_step", "madd_step"), ("pow_fixed", "fq12_cyclo_sq"))
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
@@ -352,6 +452,8 @@ KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like t
     "point_add G2": ("point_add", [(2,)] * 6, 3, (1,)),
     "point_double G1": ("point_double", [()] * 3, 3, (0,)),
     "point_double G2": ("point_double", [(2,)] * 3, 3, (1,)),
+    # the Fermat inversion of the main path: e = q - 2, 64 digits
+    "pow_fixed": ("pow_fixed", [()], 1, mc._pow_args(P.Q - 2, P.Q)),
 }
 
 
@@ -371,6 +473,8 @@ def main():
     ap.add_argument("--batch", type=int, nargs="+", default=[B])
     ap.add_argument("--pairing", action="store_true",
                     help="time pairing_batch with each picked team kernel's team and one-thread builds swapped in")
+    ap.add_argument("--sass", action="store_true",
+                    help="count each build's SASS instructions (cuobjdump) and the instructions of its loops")
     args = ap.parse_args()
     picked = args.kernels
     unknown = [k for k in picked if k not in KERNELS]
@@ -398,6 +502,9 @@ def main():
         if proc.returncode != 0:
             sys.exit(f"nvcc failed for {key}:\n{logs[key]}")
         libs[key] = ctypes.CDLL(str(so))
+    if args.sass:
+        for (stem, var), (_, so, _) in procs.items():
+            print(json.dumps({"sass": stem, "variant": var, **sass_counts(so), "card": card}), flush=True)
 
     rng = np.random.default_rng(7)
     pool = torch.from_numpy(
@@ -456,6 +563,26 @@ def main():
         for kernels in swaps:
             time_pairing(kernels, {var: {k: libs[build.ENTRIES[k][0], var] for k in kernels}
                                    for var in PAIRING_VARIANTS}, card)
+
+
+def sass_counts(so):
+    """The SASS of a built library (cuobjdump -sass, beside nvcc): its
+    instructions, those of the IMAD family, shuffles and votes, and the
+    instructions of each loop (from a backward branch to its target, in
+    address order; a pow_fixed build's shortest is the squaring loop, one
+    Montgomery product with its loop count)."""
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          check=True, capture_output=True, text=True).stdout
+    ins = [(int(a, 16), text.strip()) for a, text in re.findall(r"^\s+/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass, re.M)]
+    loops = []
+    for addr, text in ins:
+        target = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+        if target and int(target[1], 16) < addr:
+            loops.append((addr - int(target[1], 16)) // 16 + 1)
+    ops = [text.split()[1] if text.startswith("@") else text.split()[0] for _, text in ins]
+    return {"instructions": len(ins), "imad": sum(o.startswith("IMAD") for o in ops),
+            "shfl": sum(o.startswith("SHFL") for o in ops), "vote": sum(o.startswith("VOTE") for o in ops),
+            "loop_instructions": loops}
 
 
 def time_pairing(kernels, kernel_libs, card):
