@@ -17,7 +17,7 @@
 // Member order.  Member w, 0 <= w < 6, computes product w % 2 (0: tmp,
 // 1: big) of pair w / 2, with its pre-sums: 3 base-field products.  The team's
 // scratch holds the 6 products, product w at entries 2w, 2w + 1 of
-// fq_tab_store's layout (fq2_tab_store in fq12_team.cuh).
+// fq_tab_store's layout (fq2_tab_store in team.cuh).
 // Combine c, 0 <= c < 6, returns new slot c from the products and old slot c
 // alone; with t_a = big - tmp - xi tmp and t_b = 2 tmp of a pair,
 //   c = 0: nz0 = 3 t_a(p0) - 2 z0     3: nz2 = 3 xi t_b(p2) + 2 z2
@@ -34,6 +34,7 @@
 #pragma once
 
 #include "fq12_team.cuh"
+#include "team.cuh"
 
 #define BN_CYCLO_MEMBERS 6  // Fq2 products of one cyclotomic squaring
 #define BN_CYCLO_SLOTS 6    // Fq2 coefficients of an Fq12 element
@@ -95,24 +96,21 @@ BN_DEV Fq2 fq12_cyclo_combine(int c, const uint32_t* prods, const uint32_t* stat
 // One squaring on the product teams' skeleton (fq12_team_block in
 // fq12_team.cuh, kernel_fq12_cyclo_sq.cu): the members read their pair and
 // the combines their old slot straight from the element in device memory, a
-// (rows, 2, 3, 2, 16, B) tensor, so the element makes no round trip through
-// a shared state and the block needs one barrier.
-BN_DEV Fq2 fq12_cyclo_slot(const int32_t* a, int64_t e, int64_t B, int k) {
-  return fq2_load(a + fq12_offset(e, B) + (int64_t)k * 2 * BN_NLIMB * B, B);
-}
-
+// (rows, 2, 3, 2, 16, B) tensor (Fq12Global), so the element makes no round
+// trip through a shared state and the block needs one barrier.
 struct Fq12CycloSqMember {
   const int32_t* a;
   BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
     const int p = w / 2;
-    return fq12_cyclo_pair_product(w, fq12_cyclo_slot(a, e, B, fq12_cyclo_u(p)), fq12_cyclo_slot(a, e, B, fq12_cyclo_v(p)), m);
+    const Fq12Global::Element z = Fq12Global{a}.at(e, B);
+    return fq12_cyclo_pair_product(w, z(fq12_cyclo_u(p)), z(fq12_cyclo_v(p)), m);
   }
 };
 
 struct Fq12CycloSqCombine {
   const int32_t* a;
   BN_DEV Fq2 operator()(int c, int64_t e, int64_t B, const uint32_t* prods, int stride, const Mod& m) const {
-    return fq12_cyclo_combine_z(c, prods, stride, fq12_cyclo_slot(a, e, B, c), m);
+    return fq12_cyclo_combine_z(c, prods, stride, Fq12Global{a}.at(e, B)(c), m);
   }
 };
 
@@ -124,14 +122,14 @@ struct Fq12CycloSqCombine {
 // At the end warp w stores slot w.  State and scratch are [slot][coefficient]
 // [word][lane] (fq2_tab_store's layout: neighbouring lanes on neighbouring
 // banks), 12,288 bytes each.  A lane past the end clamps its element to the
-// last one, computes with the others and skips the store: no thread leaves
-// before a barrier.  `member` computes a member's Fq2 (Fq12CycloMember in the
-// package's kernel); `marks(s)` is called at the start (s = 0), after the
-// load's barrier (1), in squaring i after the member's store (2 + 4i), after
-// the first barrier (3 + 4i), after the combine's store (4 + 4i) and after
-// the second barrier (5 + 4i), and after the final store (2 + 4n): it does
-// nothing in the package's kernel, and tools/torch_fq12_team_phases.py reads
-// the clock there.
+// last one, computes with the others and skips the store (team_lane in
+// team.cuh): no thread leaves before a barrier.  `member` computes a
+// member's Fq2 (Fq12CycloMember in the package's kernel); `marks(s)` is
+// called at the start (s = 0), after the load's barrier (1), in squaring i
+// after the member's store (2 + 4i), after the first barrier (3 + 4i), after
+// the combine's store (4 + 4i) and after the second barrier (5 + 4i), and
+// after the final store (2 + 4n): it does nothing in the package's kernel,
+// and tools/torch_fq12_team_phases.py reads the clock there.
 struct Fq12CycloMember {
   __device__ __forceinline__ Fq2 operator()(int w, const uint32_t* state, int stride, const Mod& m) const {
     return fq12_cyclo_member(w, state, stride, m);
@@ -145,14 +143,11 @@ __device__ __forceinline__ void fq12_cyclo_team_block(const int32_t* __restrict_
   __shared__ uint32_t state[BN_CYCLO_SLOTS][2][BN_NW][BN_TEAM_LANES];
   __shared__ uint32_t prods[BN_CYCLO_MEMBERS][2][BN_NW][BN_TEAM_LANES];
   marks(0);
-  const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
-  const int64_t total = rows * B;
-  int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
-  const bool live = e < total;
-  if (!live) e = total - 1;
-  const int64_t off = fq12_offset(e, B) + (int64_t)w * 2 * BN_NLIMB * B;  // slot w of the element
-  uint32_t* st = &state[0][0][0][0] + lane;  // stride BN_TEAM_LANES
-  uint32_t* pr = &prods[0][0][0][0] + lane;
+  const TeamLane t = team_lane(rows * B);
+  const int w = t.w;
+  const int64_t off = fq12_offset(t.e, B) + (int64_t)w * 2 * BN_NLIMB * B;  // slot w of the element
+  uint32_t* st = &state[0][0][0][0] + t.lane;  // stride BN_TEAM_LANES
+  uint32_t* pr = &prods[0][0][0][0] + t.lane;
   Fq2 v = fq2_load(a + off, B);
   fq2_tab_store(st, BN_TEAM_LANES, w, v);
   __syncthreads();
@@ -169,7 +164,7 @@ __device__ __forceinline__ void fq12_cyclo_team_block(const int32_t* __restrict_
     __syncthreads();
     marks(5 + 4 * i);
   }
-  if (live) fq2_store(o + off, B, v);
+  if (t.live) fq2_store(o + off, B, v);
   marks(2 + 4 * n);
 }
 #endif

@@ -1,5 +1,6 @@
-// The sparse line multiply of fq12_mul024_pre split over a team of 13
-// members, for kernel_fq12_mul024_pre.cu (layouts and lanes: fq12_team.cuh).
+// The sparse line multiply split over a team of 13 members, for
+// kernel_fq12_mul024_pre.cu, kernel_fq12_mul024.cu and the second half of
+// kernel_miller_step.cu (layouts: fq12_team.cuh; lanes: team.cuh).
 //
 // Member order.  tower.cuh's fq12_mul_by_024 (src/fields/fq12.rs:107-176)
 // takes 13 independent Fq2 products of the coefficients z0..z5 of f, in
@@ -14,9 +15,22 @@
 //   nz0 = xi(p3 + d4) + d0        nz3 = xi(p8 - d2 - d4) + p9
 //   nz1 = xi(p4 + d2) + p5        nz4 = xi(p10) + p11 - d0 - d4
 //   nz2 = p6 - d0 - d2 + p7       nz5 = p12 - (p3 + p4 + p5 + p7 + p9 + p10).
+//
+// Sources.  The member reads f through an Fq12 source (fq12_team.cuh) and
+// the line's x0, x2, x4 through a line source, line.at(e, B)(i) for i = 0,
+// 1, 2; the three kernels differ only there:
+//   LineScaled   fq12_mul024_pre: ell0 (rows, 2, 16, B) and the scaled
+//                (rows, 2, 2, 16, B), x0 = ell0, x2 = scaled[1] = ell_vv
+//                g1.x, x4 = scaled[0] = ell_vw g1.y;
+//   LineCoeffs   fq12_mul024: the precompute's unscaled (rows, 3, 2, 16, B)
+//                struct (ell_0, ell_vw, ell_vv), x0 = slot 0, x2 = slot 2,
+//                x4 = slot 1 (fq12_mul_by_line in tower.cuh);
+//   the Miller step's, x2 and x4 from the block's shared memory
+//                (miller_step_team.cuh).
 #pragma once
 
 #include "fq12_team.cuh"
+#include "team.cuh"
 
 #define BN_MUL024_MEMBERS 13  // Fq2 products of one sparse line multiply
 #define BN_MUL024_BLOCK (BN_TEAM_LANES * BN_MUL024_MEMBERS)  // threads of a block: 13 warps
@@ -44,39 +58,77 @@ BN_DEV int fq12_mul024_masks(int w) {
   }
 }
 
-// Member w's two Fq2 operands: the sums its masks name, each term loaded by
-// this thread for its own element e.
-BN_DEV void fq12_mul024_operands(int w, const int32_t* f, const int32_t* ell0, const int32_t* scaled, int64_t e,
-                                 int64_t B, const Mod& m, Fq2& z, Fq2& x) {
+// Line sources, as the Fq12 sources: line.at(e, B)(i) is x0, x2 or x4
+// (i = 0, 1, 2) of element e's line, its offsets taken once in at().
+struct LineScaled {
+  const int32_t* ell0;
+  const int32_t* scaled;
+  struct Element {
+    const int32_t* x0;
+    const int32_t* s;
+    int64_t B;
+    BN_DEV Fq2 operator()(int i) const {
+      return i == 0 ? fq2_load(x0, B) : fq2_load(s + (i == 1 ? 2 * BN_NLIMB * B : 0), B);
+    }
+  };
+  BN_DEV Element at(int64_t e, int64_t B) const {
+    const int64_t row = e / B, b = e % B;
+    return Element{ell0 + row * 2 * BN_NLIMB * B + b, scaled + row * 4 * BN_NLIMB * B + b, B};
+  }
+};
+
+// Element e's (rows, 3, 2, 16, B) step coefficients (ell_0, ell_vw, ell_vv).
+BN_DEV const int32_t* line_coeffs_at(const int32_t* coeff, int64_t e, int64_t B) {
+  return coeff + (e / B) * 6 * BN_NLIMB * B + (e % B);
+}
+
+struct LineCoeffs {
+  const int32_t* coeff;
+  struct Element {
+    const int32_t* p;
+    int64_t B;
+    BN_DEV Fq2 operator()(int i) const { return fq2_load(p + (int64_t)(i == 0 ? 0 : 3 - i) * 2 * BN_NLIMB * B, B); }
+  };
+  BN_DEV Element at(int64_t e, int64_t B) const { return Element{line_coeffs_at(coeff, e, B), B}; }
+};
+
+// Member w's two Fq2 operands: the sums its masks name, each term read by
+// this thread for its own element (f and line: the element's views).
+template <class FElement, class LineElement>
+BN_DEV void fq12_mul024_operands(int w, const FElement& f, const LineElement& line, const Mod& m, Fq2& z, Fq2& x) {
   const int masks = fq12_mul024_masks(w);
-  const int64_t off = fq12_offset(e, B);
   bool any = false;
   for (int k = 0; k < 6; k++)
     if (masks >> (3 + k) & 1) {
-      const Fq2 v = fq2_load(f + off + (int64_t)k * 2 * BN_NLIMB * B, B);
+      const Fq2 v = f(k);
       z = any ? team_add(z, v, m) : v;
       any = true;
     }
   any = false;
   for (int i = 0; i < 3; i++)
     if (masks >> i & 1) {
-      const Fq2 v = fq12_line_x(ell0, scaled, e, B, i);
+      const Fq2 v = line(i);
       x = any ? team_add(x, v, m) : v;
       any = true;
     }
 }
 
 // The member as fq12_team_block calls it.
+template <class FSrc, class LineSrc>
 struct Fq12Mul024Member {
-  const int32_t* f;
-  const int32_t* ell0;
-  const int32_t* scaled;
+  FSrc f;
+  LineSrc line;
   BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
     Fq2 z, x;
-    fq12_mul024_operands(w, f, ell0, scaled, e, B, m, z, x);
+    fq12_mul024_operands(w, f.at(e, B), line.at(e, B), m, z, x);
     return fq2_mul(z, x, m);
   }
 };
+
+template <class FSrc, class LineSrc>
+BN_DEV Fq12Mul024Member<FSrc, LineSrc> fq12_mul024_member(const FSrc& f, const LineSrc& line) {
+  return Fq12Mul024Member<FSrc, LineSrc>{f, line};
+}
 
 // New coefficient z_c from the 13 products in the scratch.
 struct Fq12Mul024Combine {

@@ -20,6 +20,7 @@
 #pragma once
 
 #include "fq12_team.cuh"
+#include "team.cuh"
 
 #define BN_SQ_MEMBERS 12  // Fq2 products of one Fq12 square
 #define BN_SQ_BLOCK (BN_TEAM_LANES * BN_SQ_MEMBERS)  // threads of a block: 12 warps
@@ -28,31 +29,42 @@
 #endif
 
 // Fq2 coefficient s of operand `side` (0 or 1) of Fq6 product k, for the
-// element at p: a.c0.c{s}, a.c1.c{s}; (a.c0 + v a.c1).c{s}, (a.c0 + a.c1).c{s}.
-BN_DEV Fq2 fq12_sq_coeff(const int32_t* p, int64_t B, int k, int side, int s, const Mod& m) {
-  if (k == 0 || side == 1) return fq12_team_coeff(p, B, k == 0 ? side : 2, s, m);
-  const int t = (s + 2) % 3;  // (v a.c1).c{s} = xi a.c1.c2, a.c1.c0, a.c1.c1
-  const Fq2 hi = fq2_load(p + (int64_t)(3 + t) * 2 * BN_NLIMB * B, B);
-  return team_add(fq2_load(p + (int64_t)s * 2 * BN_NLIMB * B, B), s == 0 ? team_xi(hi, m) : hi, m);
+// element whose view (an Fq12 source's at(), fq12_team.cuh) is z: a.c0.c{s},
+// a.c1.c{s}; (a.c0 + v a.c1).c{s}, (a.c0 + a.c1).c{s}.
+template <class Element>
+BN_DEV Fq2 fq12_sq_coeff(const Element& z, int k, int side, int s, const Mod& m) {
+  if (k == 0) return z(3 * side + s);
+  if (side == 1) return team_add(z(s), z(3 + s), m);
+  const Fq2 hi = z(3 + (s + 2) % 3);  // (v a.c1).c{s} = xi a.c1.c2, a.c1.c0, a.c1.c1
+  return team_add(z(s), s == 0 ? team_xi(hi, m) : hi, m);
 }
 
 // The operand of Fq2 product j on side `side` of Fq6 product k: one
 // coefficient or the sum of two.
-BN_DEV Fq2 fq12_sq_operand(const int32_t* p, int64_t B, int k, int side, int j, const Mod& m) {
-  if (j < 3) return fq12_sq_coeff(p, B, k, side, j, m);
+template <class Element>
+BN_DEV Fq2 fq12_sq_operand(const Element& z, int k, int side, int j, const Mod& m) {
+  if (j < 3) return fq12_sq_coeff(z, k, side, j, m);
   const int s = j == 3 ? 1 : 0, t = j == 4 ? 1 : 2;
-  return team_add(fq12_sq_coeff(p, B, k, side, s, m), fq12_sq_coeff(p, B, k, side, t, m), m);
+  return team_add(fq12_sq_coeff(z, k, side, s, m), fq12_sq_coeff(z, k, side, t, m), m);
 }
 
-// The member as fq12_team_block calls it.
+// The member as fq12_team_block calls it, on the element of an Fq12 source:
+// device memory in kernel_fq12_sq.cu, the shared state in
+// kernel_miller_step.cu.
+template <class FSrc>
 struct Fq12SqMember {
-  const int32_t* a;
+  FSrc a;
   BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    const int32_t* p = a + fq12_offset(e, B);
+    const auto z = a.at(e, B);
     const int k = w / 6, j = w % 6;
-    return fq2_mul(fq12_sq_operand(p, B, k, 0, j, m), fq12_sq_operand(p, B, k, 1, j, m), m);
+    return fq2_mul(fq12_sq_operand(z, k, 0, j, m), fq12_sq_operand(z, k, 1, j, m), m);
   }
 };
+
+template <class FSrc>
+BN_DEV Fq12SqMember<FSrc> fq12_sq_member(const FSrc& a) {
+  return Fq12SqMember<FSrc>{a};
+}
 
 // Output coefficient c from the 12 products in the scratch.
 struct Fq12SqCombine {

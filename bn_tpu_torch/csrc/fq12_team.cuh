@@ -1,18 +1,14 @@
-// What the team kernels share: the layouts they read and write, written
-// here once, the Fq12 product split over a team of 18 members, and the
-// block's skeleton that runs any such team (fq12_team_block, at the end).
+// What the Fq12 teams share: the layouts they read and write, written here
+// once, the Fq12 product split over a team of 18 members, and the
+// one-barrier team that runs any such product (fq12_team_block, at the end).
 //
 // Layouts.  An Fq12 element is (rows, 2, 3, 2, 16, B), leading axes folded
 // into rows: element e is row e / B, batch index e % B, and its coefficient
 // c{i}.c{s} (Fq2 coefficient k = 3i + s of the six in memory order) starts at
-// fq12_offset(e, B) + k * 2 * 16 * B.  The sparse line of fq12_mul024_pre is
-// ell0 (rows, 2, 16, B) and scaled (rows, 2, 2, 16, B), with
-//   x0 = ell0,  x2 = scaled[1] = ell_vv * g1.x,  x4 = scaled[0] = ell_vw * g1.y
-// (fq12_line_x; tower.cuh's fq12_mul_by_024 names them x0, x2, x4).
-// The team's lanes: a block works on 32 consecutive elements (across rows),
-// lane l of every warp on element blockIdx.x * 32 + l, and warp w is member
-// w.  Its scratch is [member][coefficient][word][lane] (fq2_tab_store with
-// stride 32: neighbouring lanes on neighbouring banks).
+// fq12_offset(e, B) + k * 2 * 16 * B.  A team reads such an element through
+// a source: Fq12Global from device memory, Fq12Shared from a team's shared
+// memory.  The team's lanes and its shared memory's layout: team.cuh.  Its
+// scratch is [member][coefficient][word][lane].
 //
 // Member order of the product.  The Fq12 Karatsuba (src/fields/fq12.rs:295-307) takes three
 // Fq6 products, and each Fq6 Karatsuba (fq6_mul in tower.cuh) six Fq2
@@ -31,37 +27,14 @@
 // once, so each intermediate is the canonical element: a team's result is
 // that of tower.cuh's one-thread formula, bit for bit, whatever the order the
 // members and the combines run in.  Plain C++ like the other headers, so the
-// host tests run the same code; only the block's skeleton is device code.
+// host tests run the same code.
 #pragma once
 
+#include "team.cuh"
 #include "tower.cuh"
 
 #define BN_TEAM_MEMBERS 18  // Fq2 products of one Fq12 product
 #define BN_TEAM_COMBINES 6  // Fq2 coefficients of the result
-
-// The team's Fq2 additions and xi are calls, not inlined copies.  A member's
-// loads and pre-sums and a combine are straight-line code that each warp runs
-// once, in 18 and 6 versions; inlined, the combine took half of a block's
-// cycles for at most 32 base-field additions, and as calls two fifths
-// (tools/torch_fq12_team_phases.py).  The likely cause is instruction fetch:
-// inlined, every instruction of that code is fetched once, from beyond the
-// instruction cache; as calls, every warp runs the same few hundred.
-static BN_DEV_NOINLINE Fq2 team_add(Fq2 a, Fq2 b, Mod m) { return fq2_add(a, b, m); }
-static BN_DEV_NOINLINE Fq2 team_sub(Fq2 a, Fq2 b, Mod m) { return fq2_sub(a, b, m); }
-static BN_DEV_NOINLINE Fq2 team_xi(Fq2 a, Mod m) { return fq2_xi(a, m); }
-
-// An Fq2 in the team's scratch: entries 2k and 2k+1 of fq_tab_store.
-BN_DEV void fq2_tab_store(uint32_t* tab, int stride, int k, const Fq2& v) {
-  fq_tab_store(tab, stride, 2 * k, v.c0);
-  fq_tab_store(tab, stride, 2 * k + 1, v.c1);
-}
-
-BN_DEV Fq2 fq2_tab_load(const uint32_t* tab, int stride, int k) {
-  Fq2 r;
-  r.c0 = fq_tab_load(tab, stride, 2 * k);
-  r.c1 = fq_tab_load(tab, stride, 2 * k + 1);
-  return r;
-}
 
 // Fq2 coefficient s (0..2) of Fq6 operand k of the element at p: a.c0.c{s},
 // a.c1.c{s} or their sum.  Coefficient c{i}.c{s} starts at p + (3i + s)*2*16*stride.
@@ -157,12 +130,25 @@ BN_DEV Fq2 fq12_mul_combine(int c, const uint32_t* prods, int stride, const Mod&
 // Element e of a (rows, 2, 3, 2, 16, B) tensor: row e / B, batch index e % B.
 BN_DEV int64_t fq12_offset(int64_t e, int64_t B) { return (e / B) * 12 * BN_NLIMB * B + (e % B); }
 
-// x0, x2 or x4 (i = 0, 1, 2) of element e's sparse line: ell0, scaled[1], scaled[0].
-BN_DEV Fq2 fq12_line_x(const int32_t* ell0, const int32_t* scaled, int64_t e, int64_t B, int i) {
-  const int64_t row = e / B, b = e % B;
-  if (i == 0) return fq2_load(ell0 + row * 2 * BN_NLIMB * B + b, B);
-  return fq2_load(scaled + row * 4 * BN_NLIMB * B + b + (i == 1 ? 2 * BN_NLIMB * B : 0), B);
-}
+// Sources of an Fq12 operand: src.at(e, B) is element e's, and
+// src.at(e, B)(k) its coefficient k (memory order), read from device memory
+// or from a team's shared memory at the thread's lane.  The element's
+// offset is taken once, in at().
+struct Fq12Global {
+  const int32_t* a;
+  struct Element {
+    const int32_t* p;
+    int64_t B;
+    BN_DEV Fq2 operator()(int k) const { return fq2_load(p + (int64_t)k * 2 * BN_NLIMB * B, B); }
+  };
+  BN_DEV Element at(int64_t e, int64_t B) const { return Element{a + fq12_offset(e, B), B}; }
+};
+
+struct Fq12Shared {
+  const uint32_t* tab;
+  BN_DEV Fq12Shared at(int64_t, int64_t) const { return *this; }
+  BN_DEV Fq2 operator()(int k) const { return fq2_tab_load(tab, BN_TEAM_LANES, k); }
+};
 
 // The product's member and combine as the skeleton calls them: the member
 // gets the element's index and loads its own operands; the combine gets it
@@ -182,39 +168,52 @@ struct Fq12MulCombine {
   }
 };
 
-#ifdef __CUDACC__
-struct TeamNoMarks {
-  __device__ __forceinline__ void operator()(int) {}
+// The two phases of a one-barrier team, plain C++ so the host tests run
+// them too: member t.w writes its Fq2 product for element t.e into the
+// scratch (`prods` at the thread's lane); after the barrier warps 0-5 each
+// store combine(c, e, B, prods, 32, m) as output coefficient c of a live
+// element (e and B for a combine that also reads the element's operand).
+template <class Member>
+BN_DEV void fq12_team_members(uint32_t* prods, const TeamLane& t, int64_t B, const Mod& m, const Member& member) {
+  fq2_tab_store(prods, BN_TEAM_LANES, t.w, member(t.w, t.e, B, m));
+}
+
+template <class Combine>
+BN_DEV void fq12_team_combines(int32_t* o, const uint32_t* prods, const TeamLane& t, int64_t B, const Mod& m,
+                               const Combine& combine) {
+  if (t.w < BN_TEAM_COMBINES && t.live)
+    fq2_store(o + fq12_offset(t.e, B) + (int64_t)t.w * 2 * BN_NLIMB * B, B,
+              combine(t.w, t.e, B, prods, BN_TEAM_LANES, m));
+}
+
+// The team of kernel_fq12_mul.cu, kernel_fq12_mul024.cu,
+// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu and kernel_fq12_cyclo_sq.cu:
+// MEMBERS warps, a scratch of MEMBERS Fq2 a lane, two phases (team_block in
+// team.cuh): the members, a barrier, the combines.
+template <int MEMBERS, class Member, class Combine>
+struct Fq12Team {
+  static constexpr int kWarps = MEMBERS, kPhases = 2;
+  struct Shared {
+    uint32_t prods[MEMBERS][2][BN_NW][BN_TEAM_LANES];
+  };
+  int32_t* __restrict__ o;
+  Member member;
+  Combine combine;
+  BN_DEV void phase(int p, const TeamLane& t, int64_t B, Shared& sh, const Mod& m) const {
+    uint32_t* prods = &sh.prods[0][0][0][0] + t.lane;
+    if (p == 0)
+      fq12_team_members(prods, t, B, m, member);
+    else
+      fq12_team_combines(o, prods, t, B, m, combine);
+  }
 };
 
-// The block of a team kernel of MEMBERS warps (kernel_fq12_mul.cu,
-// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu, kernel_fq12_cyclo_sq.cu), in
-// the lane layout above: member(w, e, B, m) computes member w's Fq2 product
-// for element e into the scratch, and after one barrier warps 0-5 each store
-// combine(c, e, B, scratch, 32, m) as output coefficient c of element e (e
-// and B for a combine that also reads the element's operand).  A lane past
-// the end clamps its element to the last one, computes with the others and
-// skips the store: no thread leaves before the barrier.  `marks(i)` is called
-// at the start (0), after the member's store (1), after the barrier (2) and
-// at the end (3): it does nothing in the package's kernels, and
-// tools/torch_fq12_team_phases.py reads the clock there.
+#ifdef __CUDACC__
+// The block of such a team.  `marks(i)` is called at the start (0), after
+// the member's store (1), after the barrier (2) and at the end (3).
 template <int MEMBERS, class Member, class Combine, class Marks>
 __device__ __forceinline__ void fq12_team_block(int32_t* __restrict__ o, int64_t rows, int64_t B, const Mod& m,
                                                 const Member& member, const Combine& combine, Marks& marks) {
-  __shared__ uint32_t prods[MEMBERS][2][BN_NW][BN_TEAM_LANES];
-  marks(0);
-  const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
-  const int64_t n = rows * B;
-  int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
-  const bool live = e < n;
-  if (!live) e = n - 1;
-  uint32_t* mine = &prods[0][0][0][0] + lane;  // stride BN_TEAM_LANES: the layout of fq2_tab_store
-  fq2_tab_store(mine, BN_TEAM_LANES, w, member(w, e, B, m));
-  marks(1);
-  __syncthreads();
-  marks(2);
-  if (w < BN_TEAM_COMBINES && live)
-    fq2_store(o + fq12_offset(e, B) + (int64_t)w * 2 * BN_NLIMB * B, B, combine(w, e, B, mine, BN_TEAM_LANES, m));
-  marks(3);
+  team_block(Fq12Team<MEMBERS, Member, Combine>{o, member, combine}, rows * B, B, m, marks);
 }
 #endif

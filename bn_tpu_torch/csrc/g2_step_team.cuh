@@ -2,7 +2,7 @@
 // kernels_g2_step.cu, and the block's skeleton that runs either
 // (g2_step_team_block, at the end).
 //
-// Lanes, as in every team (fq12_team.cuh): a block works on 32 consecutive
+// Lanes, as in every team (team.cuh): a block works on 32 consecutive
 // elements (across rows), lane l of every warp on element blockIdx.x * 32 +
 // l, and warp w is member w.  Layouts: the running point r and each step's
 // line coefficients are (rows, 3, 2, 16, B), the affine base (rows, 2, 2,
@@ -55,7 +55,7 @@
 // device code.
 #pragma once
 
-#include "fq12_team.cuh"
+#include "team.cuh"
 
 #define BN_STEP_OUTPUTS 6  // x', y', z', ell_0, ell_vw, ell_vv
 
@@ -230,12 +230,11 @@ __device__ __forceinline__ void g2_step_team_block(const Step& step, int32_t* __
                                                    const Mod& m, Marks& marks) {
   __shared__ uint32_t state[Step::SLOTS][2][BN_NW][BN_TEAM_LANES];
   marks(0);
-  const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
-  const int64_t n = rows * B;
-  int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
-  const bool live = e < n;
-  if (!live) e = n - 1;
-  uint32_t* st = &state[0][0][0][0] + lane;  // stride BN_TEAM_LANES: the layout of fq2_tab_store
+  const TeamLane t = team_lane(rows * B);
+  const int w = t.w;
+  const int64_t e = t.e;
+  const bool live = t.live;
+  uint32_t* st = &state[0][0][0][0] + t.lane;  // stride BN_TEAM_LANES: the layout of fq2_tab_store
   for (int k = w; k < Step::kInputs; k += Step::kMembers) fq2_tab_store(st, BN_TEAM_LANES, k, step.input(k, e, B));
   __syncthreads();
   marks(1);

@@ -3,7 +3,7 @@
 // _fq12_mul024_pre_body, lazy formula _k12_mul024_lazy); the Miller loop
 // calls it once per ladder step.  f is an Fq12 element and the product is
 // f * ((x0 + x2 v) + x4 v w), the line's x0, x2, x4 read from ell0 and the
-// (2, 2) struct `scaled` as fq12_team.cuh lays them out.
+// (2, 2) struct `scaled` as fq12_mul024_team.cuh lays them out (LineScaled).
 //
 // What bounds it on an H100: integer multiply-add throughput, 39 base-field
 // products of 136 32x32->64-bit multiply-adds each per element, against
@@ -33,7 +33,8 @@ k_fq12_mul024_pre(const int32_t* __restrict__ f, const int32_t* __restrict__ ell
                   const int32_t* __restrict__ scaled, int32_t* __restrict__ o, int64_t rows,
                   int64_t B, Mod m) {
   TeamNoMarks marks;
-  fq12_team_block<BN_MUL024_MEMBERS>(o, rows, B, m, Fq12Mul024Member{f, ell0, scaled}, Fq12Mul024Combine(), marks);
+  fq12_team_block<BN_MUL024_MEMBERS>(o, rows, B, m, fq12_mul024_member(Fq12Global{f}, LineScaled{ell0, scaled}),
+                                     Fq12Mul024Combine(), marks);
 }
 
 extern "C" int bn_fq12_mul024_pre(const void* f, const void* ell0, const void* scaled, void* o,

@@ -29,7 +29,7 @@
 __global__ void __launch_bounds__(BN_SQ_BLOCK, BN_SQ_MIN_BLOCKS)
 k_fq12_sq(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
   TeamNoMarks marks;
-  fq12_team_block<BN_SQ_MEMBERS>(o, rows, B, m, Fq12SqMember{a}, Fq12SqCombine(), marks);
+  fq12_team_block<BN_SQ_MEMBERS>(o, rows, B, m, fq12_sq_member(Fq12Global{a}), Fq12SqCombine(), marks);
 }
 
 extern "C" int bn_fq12_sq(const void* a, void* o, long long rows, long long B,

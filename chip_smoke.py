@@ -25,12 +25,13 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
     probe, and from that rate and the published memory rate computes each
-    kernel's bound at the timed shape; the eight kernels that give 32
+    kernel's bound at the timed shape; the ten kernels that give 32
     elements to a block, the teams `fq12_mul`, `fq12_sq`, `fq12_mul024_pre`,
-    the chain, `fq12_cyclo_sq`, `double_step` and `madd_step` and the group
-    kernel `pow_fixed`, are also held at B = 37, lead 3 (blocks of 32 that
-    straddle the rows; `pow_fixed` for both moduli and both exponents, against
-    Python's pow too), and their rows give the block of their launch at the
+    the chain, `fq12_cyclo_sq`, `double_step`, `madd_step`, `fq12_mul024` and
+    `miller_step` (both instances) and the group kernel `pow_fixed`, are also
+    held at B = 37, lead 3 (blocks of 32 that straddle the rows; `pow_fixed`
+    for both moduli and both exponents, against Python's pow too), and their
+    rows give the block of their launch at the
     timed shape (threads, elements) and the loaded kernel's static shared
     memory (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5
     beside n = 2;
@@ -56,7 +57,11 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     the Miller loop alone, three runs each; `tower.fq12_mul_by_024` on the
     run's own line coefficients and points (one `fq12_mul024` launch) equal
     to `fq12_mul024_pre` on the scaled line and to `miller_step` without the
-    square;
+    square; and, on the easy part of the final exponentiation of the run's
+    Miller loop (a cyclotomic element, all 8192 lanes), `fq12_cyclo_sq` and
+    the chain at n = 1 equal to the `fq12_sq` team, and the chain at n = 2 to
+    two of its squares: the Karatsuba members share nothing with the
+    Granger-Scott members that the fused and the unfused paths both run;
  7. `curve_path`: `curve.mul` for G1 and G2 on 1024 lanes with the
     `curve_kernels` switch on and off: the same limbs, with it on exactly 256
     `point_double` and 256 `point_add` launches a ladder and no `mod_add`;
@@ -140,7 +145,7 @@ CURVE_KERNELS = {
 # kernels whose C source also has bn_<name>_launch: the block of a launch.
 # These give 32 elements to a block, so they are also held at B_STRADDLE.
 TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12_cyclo_sq_chain",
-                "double_step", "madd_step", "pow_fixed")
+                "double_step", "madd_step", "pow_fixed", "fq12_mul024", "miller_step")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
@@ -684,11 +689,27 @@ def main():
     step = tc.miller_step(out, coeffs[k_line], pa[0], pa[1], False)
     if not (torch.equal(by_tower_scaled, pre) and torch.equal(by_tower_scaled, step)) or torch.equal(by_tower, pre):
         fail("tower.fq12_mul_by_024 on the scaled line differs from fq12_mul024_pre or miller_step")
+    # the squarings against an independent formula: on a cyclotomic element,
+    # the easy part of the final exponentiation, the Granger-Scott squaring
+    # equals the general square (fq12_sq's Karatsuba team)
+    conj_over = tower.fq12_mul(tower.fq12_conj(f_hoisted), tower.fq12_inv(f_hoisted))
+    easy = tower.fq12_mul(tower.fq12_frob(conj_over, 2), conj_over)
+    general = tc.fq12_sq(easy, P.Q)
+    if torch.equal(general, easy):
+        fail("the easy part of the final exponentiation is its own square: no check")
+    for what, got_sq, want_sq in (("fq12_cyclo_sq", tc.fq12_cyclo_sq(easy, P.Q), general),
+                                  ("fq12_cyclo_sq_chain at n = 1", tc.fq12_cyclo_sq_chain(easy, 1, P.Q), general),
+                                  ("fq12_cyclo_sq_chain at n = 2", tc.fq12_cyclo_sq_chain(easy, 2, P.Q),
+                                   tc.fq12_sq(general, P.Q))):
+        if not torch.equal(got_sq, want_sq):
+            fail(f"{what} differs from the fq12_sq team on the cyclotomic easy part")
     emit({"phase": "miller_path", "batch": B, "launches": counts_miller, "launches_total": sum(counts_miller.values()),
           "miller_step_instances": instances, "equals_main_path_lanes": B,
           "ms_runs": miller_times,
           "ms": {c_: {k_: statistics.median(v) for k_, v in t_.items()} for c_, t_ in miller_times.items()},
-          "fq12_mul_by_024_step": k_line, "fq12_mul_by_024_launches": counts_line, "card": smi})
+          "fq12_mul_by_024_step": k_line, "fq12_mul_by_024_launches": counts_line,
+          "cyclotomic_squarings_equal_fq12_sq": {"lanes": B, "fq12_cyclo_sq": True, "chain_n1": True, "chain_n2": True},
+          "card": smi})
 
     def clock(fn):
         """(result, seconds) of fn() with the card's work included."""

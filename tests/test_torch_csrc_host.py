@@ -5,10 +5,15 @@ bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
 uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
 in for the kernels (same offsets, a loop instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
-without a GPU, and, for fq12_mul, fq12_mul024_pre and fq12_sq, the teams of
-csrc/fq12_team.cuh, fq12_mul024_team.cuh and fq12_sq_team.cuh as their
-kernels schedule them (fq12_team_block: blocks of 32 elements, 18, 13 or 12
-members into a scratch laid out as its shared memory, then 6 combines), and
+without a GPU, and, for fq12_mul, fq12_mul024_pre, fq12_mul024 and fq12_sq,
+the teams of csrc/fq12_team.cuh, fq12_mul024_team.cuh and fq12_sq_team.cuh
+as their kernels schedule them (fq12_team_block: blocks of 32 elements, 18,
+13 or 12 members into a scratch laid out as its shared memory, then 6
+combines), for miller_step the team of csrc/miller_step_team.cuh in both
+instances (the same skeleton, team_block of csrc/team.cuh, with three or
+four phases: fq12_sq's members, its combines into a state while two warps
+scale the line, the sparse multiply's members on the state, its combines),
+and
 for the squaring chain the team of csrc/fq12_cyclo_team.cuh as
 kernel_fq12_cyclo_sq_chain.cu schedules it (the element in a state laid out
 as its shared memory for the whole run, each squaring 6 members into a
@@ -53,6 +58,7 @@ _OPS = [
     "fq12_cyclo_sq_team", "fq12_cyclo_sq_team_reverse",
     "group_mul_4", "group_mul_4_reverse", "group_mul_8", "group_mul_8_reverse",
     "group_pow_4", "group_pow_4_reverse", "group_pow_8", "group_pow_8_reverse",
+    "fq12_mul024_line_team", "fq12_mul024_line_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -96,6 +102,8 @@ def host_lib(tmp_path_factory):
     lib.host_curve.restype = ctypes.c_int
     lib.host_miller_step.argtypes = [ctypes.c_int] + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
     lib.host_miller_step.restype = ctypes.c_int
+    lib.host_miller_team.argtypes = [ctypes.c_int] * 2 + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
+    lib.host_miller_team.restype = ctypes.c_int
     return lib
 
 
@@ -210,24 +218,52 @@ def test_header_fq12_mul_team_equals_plain(host_lib, order, batch):
 
 @pytest.mark.parametrize("order", ["in-order", "reverse"])
 @pytest.mark.parametrize("batch", [5, 37, 64])
-@pytest.mark.parametrize("kernel", ["fq12_mul024", "fq12_sq"])
+@pytest.mark.parametrize("kernel", ["fq12_mul024", "fq12_sq", "fq12_mul024_line", "miller_step_square",
+                                    "miller_step_no_square"])
 def test_header_mul024_and_sq_teams_equal_plain(host_lib, kernel, batch, order):
-    """The teams of fq12_mul024_pre (13 members) and fq12_sq (12) at lead 3:
-    with B = 5 one ragged block holds all 15 elements; with B = 37 the blocks
-    of 32 straddle the row boundaries and the last is ragged; with B = 64 a
-    block straddles none.  Members and combines in order and last to first,
-    the scratch poisoned every block; edge values at both ends of the flat
-    batch.  The line's ell0 and its two scaled entries are drawn apart, so a
-    swap of the slots x2 = scaled[1] and x4 = scaled[0] would show."""
-    name = kernel + "_team" + ("_reverse" if order == "reverse" else "")
+    """The teams of fq12_mul024_pre (the id fq12_mul024; 13 members),
+    fq12_sq (12), fq12_mul024 (fq12_mul024_line: fq12_mul024_pre's members
+    reading the precompute's unscaled (3, 2) struct) and miller_step (both
+    instances: fq12_sq's members, its combines into the state while two warps
+    scale the line, the sparse multiply's members on the state, its
+    combines; csrc/miller_step_team.cuh) at lead 3: with B = 5 one ragged
+    block holds all 15 elements; with B = 37 the blocks of 32 straddle the
+    row boundaries and the last is ragged; with B = 64 a block straddles
+    none.  Members and combines in order and last to first, the shared
+    memory poisoned every block and the scratch again before the sparse
+    multiply's members; edge values at both ends of the flat batch.  The
+    line's entries are drawn apart, so a swap of the slots x2 and x4 would
+    show."""
     f = _with_edge_tail(rand_field(370, (3, 2, 3, 2, batch)))
+    reverse = order == "reverse"
     if kernel == "fq12_sq":
-        got = _run_host(host_lib, name, [f], TP.Q)
+        got = _run_host(host_lib, "fq12_sq_team" + ("_reverse" if reverse else ""), [f], TP.Q)
         assert np.array_equal(got, tc.fq12_sq_plain(*_tensors([f]), TP.Q).numpy())
+        return
+    if kernel.startswith("miller_step"):
+        square = kernel == "miller_step_square"
+        coeff = _with_edge_tail(rand_field(373, (3, 3, 2, batch)))
+        px, py = (_with_edge_tail(rand_field(seed, (3, batch))) for seed in (374, 375))
+        arrs = [np.ascontiguousarray(x.astype(np.int32)) for x in (f, coeff, px, py)]
+        got = np.empty_like(arrs[0])
+        words, inv32 = mc._mod_args(TP.Q)
+        assert host_lib.host_miller_team(int(square), int(reverse), *(a.ctypes.data for a in arrs), got.ctypes.data,
+                                         3, batch, words, inv32) == 0
+        assert np.array_equal(got, tc.miller_step_plain(*_tensors([f, coeff, px, py]), square).numpy())
+        swapped = tc.miller_step_plain(*_tensors([f, coeff, py, px]), square).numpy()
+        assert not np.array_equal(swapped, got)
+        return
+    if kernel == "fq12_mul024_line":
+        coeff = _with_edge_tail(rand_field(373, (3, 3, 2, batch)))
+        got = _run_host(host_lib, "fq12_mul024_line_team" + ("_reverse" if reverse else ""), [f, coeff], TP.Q)
+        want = tc.fq12_mul024_plain(*_tensors([f, coeff]), TP.Q).numpy()
+        assert np.array_equal(got, want)
+        swapped = tc.fq12_mul024_plain(*_tensors([f, coeff[:, [0, 2, 1]]]), TP.Q).numpy()
+        assert not np.array_equal(swapped, want)
         return
     ell0 = _with_edge_tail(rand_field(371, (3, 2, batch)))
     scaled = _with_edge_tail(rand_field(372, (3, 2, 2, batch)))
-    got = _run_host(host_lib, name, [f, ell0, scaled], TP.Q)
+    got = _run_host(host_lib, "fq12_mul024_team" + ("_reverse" if reverse else ""), [f, ell0, scaled], TP.Q)
     want = tc.fq12_mul024_pre_plain(*_tensors([f, ell0, scaled]), TP.Q).numpy()
     assert np.array_equal(got, want)
     swapped = tc.fq12_mul024_pre_plain(*_tensors([f, ell0, scaled[:, ::-1]]), TP.Q).numpy()

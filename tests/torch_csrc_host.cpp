@@ -1,7 +1,8 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, fq_group.cuh, tower.cuh, fq12_team.cuh, fq12_mul024_team.cuh,
-// fq12_sq_team.cuh, fq12_cyclo_team.cuh, g2_step_team.cuh, curve.cuh are plain
-// C++ when no CUDA compiler is at work).
+// fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
+// fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
+// g2_step_team.cuh, miller_step_team.cuh, curve.cuh are plain C++ when no
+// CUDA compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
@@ -13,6 +14,7 @@
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
+#include "miller_step_team.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
@@ -23,7 +25,8 @@ enum {
   OP_DOUBLE_STEP_TEAM, OP_DOUBLE_STEP_TEAM_REVERSE, OP_MADD_STEP_TEAM, OP_MADD_STEP_TEAM_REVERSE,
   OP_FQ12_CYCLO_SQ_TEAM, OP_FQ12_CYCLO_SQ_TEAM_REVERSE,
   OP_GROUP_MUL_4, OP_GROUP_MUL_4_REVERSE, OP_GROUP_MUL_8, OP_GROUP_MUL_8_REVERSE,
-  OP_GROUP_POW_4, OP_GROUP_POW_4_REVERSE, OP_GROUP_POW_8, OP_GROUP_POW_8_REVERSE
+  OP_GROUP_POW_4, OP_GROUP_POW_4_REVERSE, OP_GROUP_POW_8, OP_GROUP_POW_8_REVERSE,
+  OP_FQ12_MUL024_LINE_TEAM, OP_FQ12_MUL024_LINE_TEAM_REVERSE
 };
 
 // The group of fq_group.cuh on the host: the T lanes of one group as arrays
@@ -110,35 +113,54 @@ static void group_run(bool pow, bool reverse, const int32_t* a, const int32_t* b
   }
 }
 
+// team_block (team.cuh), the block of the teams that run in phases, one
+// block after another: the block's shared memory (Team::Shared, laid out as
+// the kernel's) starts every block filled with a pattern that is no field
+// element; then each phase runs its warps over the block's 32 lanes, as
+// between two barriers, members in order or, with `reverse`, last to first,
+// after `poison(p, shared)` has refilled what phase p is to write.  The
+// result does not change only if no warp reads what another warp of its
+// phase writes, and no phase reads what no earlier phase wrote.  A lane past
+// the end clamps its element and skips its stores, as in the kernel
+// (team_lane_at).
+template <class Team, class Poison>
+static void team_run(const Team& team, int64_t rows, int64_t B, const Mod& m, bool reverse, Poison poison) {
+  typename Team::Shared sh;
+  const int64_t n = rows * B;
+  for (int64_t first = 0; first < n; first += BN_TEAM_LANES) {
+    memset(&sh, 0xFF, sizeof sh);
+    for (int p = 0; p < Team::kPhases; p++) {
+      poison(p, sh);
+      for (int i = 0; i < Team::kWarps; i++) {
+        const int w = reverse ? Team::kWarps - 1 - i : i;
+        for (int lane = 0; lane < BN_TEAM_LANES; lane++) team.phase(p, team_lane_at(lane, w, first, n), B, sh, m);
+      }
+    }
+  }
+}
+
 // fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul.cu,
-// kernel_fq12_mul024_pre.cu and kernel_fq12_sq.cu, one block after another:
-// the MEMBERS members of a block (each over the block's 32 lanes) write their
-// Fq2 products into a scratch laid out as the kernel's shared memory,
-// [member][coefficient][word][lane]; then, as after the barrier, the 6
-// combines read it and store.  The scratch starts every block filled with a
-// pattern that is no field element, and `reverse` runs the members and the
-// combines last to first: the result does not change only if no member reads
-// what another writes.  A lane past the end clamps its element and skips the
-// store, as in the kernel.
+// kernel_fq12_mul024.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu and
+// kernel_fq12_cyclo_sq.cu: the MEMBERS members write their Fq2 products into
+// the scratch, then the 6 combines read it and store.
 template <int MEMBERS, class Member, class Combine>
 static void fq12_team(const Member& member, const Combine& combine, int32_t* o, int64_t rows, int64_t B,
                       const Mod& m, bool reverse) {
-  uint32_t prods[MEMBERS * 2 * BN_NW * BN_TEAM_LANES];
-  const int64_t n = rows * B;
-  for (int64_t first = 0; first < n; first += BN_TEAM_LANES) {
-    for (uint32_t& x : prods) x = 0xFFFFFFFFu;
-    for (int i = 0; i < MEMBERS; i++) {
-      int w = reverse ? MEMBERS - 1 - i : i;
-      for (int lane = 0; lane < BN_TEAM_LANES; lane++)
-        fq2_tab_store(prods + lane, BN_TEAM_LANES, w, member(w, first + lane < n ? first + lane : n - 1, B, m));
-    }
-    for (int i = 0; i < BN_TEAM_COMBINES; i++) {
-      int c = reverse ? BN_TEAM_COMBINES - 1 - i : i;
-      for (int lane = 0; lane < BN_TEAM_LANES && first + lane < n; lane++)
-        fq2_store(o + fq12_offset(first + lane, B) + (int64_t)c * 2 * BN_NLIMB * B, B,
-                  combine(c, first + lane, B, prods + lane, BN_TEAM_LANES, m));
-    }
-  }
+  using Team = Fq12Team<MEMBERS, Member, Combine>;
+  team_run(Team{o, member, combine}, rows, B, m, reverse, [](int, typename Team::Shared&) {});
+}
+
+// kernel_miller_step.cu's team: the scratch is poisoned again before the
+// sparse multiply's members overwrite it (phase 3 of the square instance,
+// phase 1 of the other), so a member that read a product of fq12_sq's
+// would show.
+template <bool kSquare>
+static void miller_team(const int32_t* f, const int32_t* c, const int32_t* px, const int32_t* py, int32_t* o,
+                        int64_t rows, int64_t B, const Mod& m, bool reverse) {
+  using Team = MillerStepTeam<kSquare>;
+  team_run(Team{f, c, px, py, o}, rows, B, m, reverse, [](int p, typename Team::Shared& sh) {
+    if (p == (kSquare ? 3 : 1)) memset(sh.prods, 0xFF, sizeof sh.prods);
+  });
 }
 
 // kernel_fq12_cyclo_sq_chain.cu's team, one block after another: the 6 slots
@@ -249,12 +271,18 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
     return 0;
   }
   if (op == OP_FQ12_MUL024_TEAM || op == OP_FQ12_MUL024_TEAM_REVERSE) {  // f, ell0, scaled
-    fq12_team<BN_MUL024_MEMBERS>(Fq12Mul024Member{a, b, c}, Fq12Mul024Combine(), o, rows, B, m,
-                                 op == OP_FQ12_MUL024_TEAM_REVERSE);
+    fq12_team<BN_MUL024_MEMBERS>(fq12_mul024_member(Fq12Global{a}, LineScaled{b, c}), Fq12Mul024Combine(), o, rows,
+                                 B, m, op == OP_FQ12_MUL024_TEAM_REVERSE);
+    return 0;
+  }
+  if (op == OP_FQ12_MUL024_LINE_TEAM || op == OP_FQ12_MUL024_LINE_TEAM_REVERSE) {  // f, the unscaled coefficients
+    fq12_team<BN_MUL024_MEMBERS>(fq12_mul024_member(Fq12Global{a}, LineCoeffs{b}), Fq12Mul024Combine(), o, rows, B,
+                                 m, op == OP_FQ12_MUL024_LINE_TEAM_REVERSE);
     return 0;
   }
   if (op == OP_FQ12_SQ_TEAM || op == OP_FQ12_SQ_TEAM_REVERSE) {
-    fq12_team<BN_SQ_MEMBERS>(Fq12SqMember{a}, Fq12SqCombine(), o, rows, B, m, op == OP_FQ12_SQ_TEAM_REVERSE);
+    fq12_team<BN_SQ_MEMBERS>(fq12_sq_member(Fq12Global{a}), Fq12SqCombine(), o, rows, B, m,
+                             op == OP_FQ12_SQ_TEAM_REVERSE);
     return 0;
   }
   if (op == OP_DOUBLE_STEP_TEAM || op == OP_DOUBLE_STEP_TEAM_REVERSE) {  // extra: the twist's b
@@ -373,6 +401,21 @@ extern "C" int host_miller_step(int square, const int32_t* f, const int32_t* c, 
     Fq x = fq_load(px + o1, B), y = fq_load(py + o1, B);
     fq12_store(o + o12, B, square ? fq12_miller_step<true>(a, co, x, y, m) : fq12_miller_step<false>(a, co, x, y, m));
   }
+  return 0;
+}
+
+// kernel_miller_step.cu's team (miller_team): the same operands, members in
+// order (reverse = 0) or last to first.
+extern "C" int host_miller_team(int square, int reverse, const int32_t* f, const int32_t* c, const int32_t* px,
+                                const int32_t* py, int32_t* o, long long rows, long long B, const uint32_t* mod,
+                                uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  if (square)
+    miller_team<true>(f, c, px, py, o, rows, B, m, reverse);
+  else
+    miller_team<false>(f, c, px, py, o, rows, B, m, reverse);
   return 0;
 }
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a block of one of the port's team kernels spends its time on the
 card: csrc/kernel_fq12_mul.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu
-(the skeleton fq12_team_block of csrc/fq12_team.cuh) or
-kernel_fq12_cyclo_sq_chain.cu.
+(the skeleton fq12_team_block of csrc/fq12_team.cuh),
+kernel_fq12_cyclo_sq_chain.cu, kernels_g2_step.cu or kernel_miller_step.cu.
 
 fq12_mul (the default), fq12_mul024_pre, fq12_sq:
 
@@ -51,10 +51,20 @@ stores, the block's cycles and µs, the SM clock in the run, the most blocks
 a multiprocessor ran at once, and the limbs' equality with the package's
 kernel (both outputs).
 
+--kernel miller_step: the same for the Miller step's team block (team_block
+in csrc/team.cuh with MillerStepTeam of csrc/miller_step_team.cuh, the body
+of k_miller_step, under the same __launch_bounds__), both instances: for
+each batch and instance one line with the kernel's time, and for each phase,
+over all blocks, the median cycles of the warps' work (slowest warp, mean
+warp, each warp) and of the wait at the barrier that ends it; the block's
+cycles and µs, the SM clock in the run, the most blocks a multiprocessor ran
+at once, and the limbs' equality with the package's kernel.
+
 Run from the repository root on a machine with a GPU and nvcc:
     python3 tools/torch_fq12_team_phases.py [B ...]
-        [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain|double_step|madd_step]
-        [--n N]    (default: 32 8192, fq12_mul, n = 5)
+        [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain|double_step|madd_step|miller_step]
+        [--n N] [--flag F ...]    (default: 32 8192, fq12_mul, n = 5; --flag adds nvcc flags,
+        e.g. --flag=-DBN_MILLER_SQ_MIN_BLOCKS=1)
 """
 
 import argparse
@@ -80,6 +90,7 @@ SOURCE = r"""
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
+#include "miller_step_team.cuh"
 
 // Each team's member from three operand pointers, with its products (the
 // package's member) or with an addition of its two operands in their place.
@@ -100,29 +111,29 @@ struct MulSums {
 struct Mul024Products {
   const int32_t *a, *b, *c;
   __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    return Fq12Mul024Member{a, b, c}(w, e, B, m);
+    return fq12_mul024_member(Fq12Global{a}, LineScaled{b, c})(w, e, B, m);
   }
 };
 struct Mul024Sums {
   const int32_t *a, *b, *c;
   __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
     Fq2 z, x;
-    fq12_mul024_operands(w, a, b, c, e, B, m, z, x);
+    fq12_mul024_operands(w, Fq12Global{a}.at(e, B), LineScaled{b, c}.at(e, B), m, z, x);
     return fq2_add(z, x, m);
   }
 };
 struct SqProducts {
   const int32_t *a, *b, *c;
   __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    return Fq12SqMember{a}(w, e, B, m);
+    return fq12_sq_member(Fq12Global{a})(w, e, B, m);
   }
 };
 struct SqSums {
   const int32_t *a, *b, *c;
   __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    const int32_t* p = a + fq12_offset(e, B);
+    const Fq12Global::Element z = Fq12Global{a}.at(e, B);
     const int k = w / 6, j = w % 6;
-    return fq2_add(fq12_sq_operand(p, B, k, 0, j, m), fq12_sq_operand(p, B, k, 1, j, m), m);
+    return fq2_add(fq12_sq_operand(z, k, 0, j, m), fq12_sq_operand(z, k, 1, j, m), m);
   }
 };
 
@@ -261,6 +272,41 @@ extern "C" int bn_step_phases(int madd, const void* r, const void* base, void* r
   }
   return (int)cudaGetLastError();
 }
+
+// miller_step's team block under k_miller_step's __launch_bounds__, with the
+// chain's marks: 2 kPhases a warp
+template <bool kSquare>
+__global__ void __launch_bounds__(BN_MILLER_BLOCK, kSquare ? BN_MILLER_SQ_MIN_BLOCKS : BN_MILLER_MIN_BLOCKS)
+k_miller_phases(const int32_t* __restrict__ f, const int32_t* __restrict__ coeff, const int32_t* __restrict__ px,
+                const int32_t* __restrict__ py, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m,
+                long long* __restrict__ clocks, long long* __restrict__ info) {
+  constexpr int kMarks = 2 * MillerStepTeam<kSquare>::kPhases;
+  RowClockMarks marks{clocks + ((int64_t)blockIdx.x * BN_MILLER_WARPS + threadIdx.x / BN_TEAM_LANES) * kMarks,
+                      info + (int64_t)blockIdx.x * 3, kMarks - 1};
+  team_block(MillerStepTeam<kSquare>{f, coeff, px, py, o}, rows * B, B, m, marks);
+}
+
+// out[0] warps and out[1] phases of the instance (square = 1 or 0)
+extern "C" void bn_miller_shape(int square, int* out) {
+  out[0] = BN_MILLER_WARPS;
+  out[1] = square ? MillerStepTeam<true>::kPhases : MillerStepTeam<false>::kPhases;
+}
+
+extern "C" int bn_miller_phases(int square, const void* f, const void* coeff, const void* px, const void* py, void* o,
+                                long long rows, long long B, const uint32_t* mod, uint32_t inv, void* clocks,
+                                void* info, void* stream) {
+  const unsigned grid = bn_grid(rows * B, BN_TEAM_LANES);
+  const Mod m = bn_make_mod(mod, inv);
+  if (square)
+    k_miller_phases<true><<<grid, BN_MILLER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)f, (const int32_t*)coeff, (const int32_t*)px, (const int32_t*)py, (int32_t*)o, rows, B, m,
+        (long long*)clocks, (long long*)info);
+  else
+    k_miller_phases<false><<<grid, BN_MILLER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)f, (const int32_t*)coeff, (const int32_t*)px, (const int32_t*)py, (int32_t*)o, rows, B, m,
+        (long long*)clocks, (long long*)info);
+  return (int)cudaGetLastError();
+}
 """
 LANES = 32
 CHAIN_MEMBERS = 6
@@ -284,8 +330,10 @@ def main():
         sys.exit("needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("batches", type=int, nargs="*", default=[32, 8192])
-    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"] + list(STEPS), default="fq12_mul")
+    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"] + list(STEPS) + ["miller_step"],
+                    default="fq12_mul")
     ap.add_argument("--n", type=int, default=5, help="squarings of the chain")
+    ap.add_argument("--flag", action="append", default=[], help="an nvcc flag added to the package's (repeatable)")
     args = ap.parse_args()
     card = smi("name,power.limit")
     out_dir = build.BUILD / "phases"
@@ -293,7 +341,8 @@ def main():
     src, so = out_dir / "fq12_team_phases.cu", out_dir / "libfq12_team_phases.so"
     src.write_text(SOURCE)
     # every team kernel's source builds with the same flags (ops/build.py SOURCE_FLAGS)
-    proc = build.compile_start(build.ENTRIES[args.kernel][0], so, src=src)
+    stem = build.ENTRIES[args.kernel][0]
+    proc = build.compile_start(stem, so, build.SOURCE_FLAGS.get(stem, []) + args.flag, src=src)
     log, _ = proc.communicate()
     if proc.returncode != 0:
         sys.exit(f"nvcc failed:\n{log}")
@@ -302,6 +351,8 @@ def main():
         chain_phases(lib, args.batches, args.n, card)
     elif args.kernel in STEPS:
         step_phases(lib, args.kernel, args.batches, card)
+    elif args.kernel == "miller_step":
+        miller_phases(lib, args.batches, card)
     else:
         team_phases(lib, args.kernel, args.batches, card)
 
@@ -453,6 +504,56 @@ def step_phases(lib, kernel, batches, card):
             "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
             "sm_clock_after": sm_clock, f"equals_{kernel}": same, "card": card,
         }), flush=True)
+
+
+def miller_phases(lib, batches, card):
+    fn = lib.bn_miller_phases
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    words, inv32 = mc._mod_args(P.Q)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    med = lambda x: [float(v) for v in np.median(x, axis=0)]  # noqa: E731  over blocks
+    for batch in batches:
+        f, coeff, px, py = random_operands(rng, [(2, 3, 2), (3, 2), (), ()], batch, dev)
+        o = torch.empty_like(f)
+        blocks = (batch + LANES - 1) // LANES
+        for square in (True, False):
+            shape = (ctypes.c_int * 2)()
+            lib.bn_miller_shape(int(square), shape)
+            warps, phases = shape
+            clocks = torch.zeros((blocks, warps, 2 * phases), dtype=torch.int64, device=dev)
+            info = torch.zeros((blocks, 3), dtype=torch.int64, device=dev)  # multiprocessor, start ns, end ns
+            ms = {True: []}
+
+            def launch(_):
+                return fn(int(square), f.data_ptr(), coeff.data_ptr(), px.data_ptr(), py.data_ptr(), o.data_ptr(), 1,
+                          batch, words, inv32, clocks.data_ptr(), info.data_ptr(), stream)
+
+            c = timed_runs(launch, clocks, ms, True)  # (blocks, warps, 2 phases)
+            nfo = info.cpu().numpy().copy()
+            same = bool(torch.equal(o, tc.miller_step(f, coeff, px, py, square)))
+            sm_clock = smi("clocks.sm")
+            # phase p: from the start or the previous barrier's release (mark 2p) to the warp's end of work (1 + 2p)
+            work = np.stack([c[:, :, 1 + 2 * p] - c[:, :, 2 * p] for p in range(phases)], axis=1)
+            print(json.dumps({
+                "kernel": "miller_step", "instance": "square" if square else "no square", "batch": batch,
+                "phases": phases, "ms": ms[True], "blocks": blocks,
+                "phase_cycles_slowest_warp": med(work.max(axis=2)),
+                "phase_cycles_mean_warp": med(work.mean(axis=2)),
+                "phase_cycles_by_warp": [med(work[:, p, :]) for p in range(phases)],
+                "barrier_wait_cycles": med(np.stack([c[:, :, 2 + 2 * p].max(axis=1) - c[:, :, 1 + 2 * p].max(axis=1)
+                                                     for p in range(phases - 1)], axis=1)),
+                "block_cycles": float(np.median(c[:, :, -1].max(axis=1) - c[:, :, 0].min(axis=1))),
+                "block_us": float(np.median(nfo[:, 2] - nfo[:, 1])) / 1e3,
+                "sm_clock_ghz_in_run": float(np.median((c[:, 0, -1] - c[:, 0, 0]) / (nfo[:, 2] - nfo[:, 1]))),
+                "kernel_span_us": float(nfo[:, 2].max() - nfo[:, 1].min()) / 1e3,
+                "multiprocessors_used": int(len(np.unique(nfo[:, 0]))),
+                "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
+                "sm_clock_after": sm_clock, "equals_miller_step": same, "card": card,
+            }), flush=True)
 
 
 def team_phases(lib, kernel, batches, card):

@@ -15,7 +15,13 @@ for 2 blocks a multiprocessor; STEP_THREAD_SOURCE, one source for both);
 fq12_cyclo_sq (6 warps on fq12_team_block, one barrier;
 CYCLO_SQ_THREAD_SOURCE), also against the chain's block at n = 1
 (CYCLO_SQ_CHAIN_BLOCK_SOURCE); pow_fixed (a group of 4 lanes an element,
-csrc/fq_group.cuh; POW_THREAD_SOURCE), also with groups of 8 lanes.
+csrc/fq_group.cuh; POW_THREAD_SOURCE), also with groups of 8 lanes;
+fq12_mul024 (fq12_mul024_pre's team on the unscaled line;
+MUL024_LINE_THREAD_SOURCE), also with registers for one block; both
+instances of miller_step (13 warps, csrc/miller_step_team.cuh;
+MILLER_THREAD_SOURCE, the labels "miller_step square" and "miller_step no
+square"), also with registers for one block in both instances and for two
+in both.
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -24,7 +30,13 @@ For each kernel and each variant it prints one JSON line:
 nvcc's build time, what `ptxas -v` reports for the source's entries (registers,
 stack, spills, static shared memory), the kernel's time at each batch (CUDA
 events, 50 launches after a warm-up, variants in turns: a, b, b, a, or a, b, c,
-c, b, a), and whether every variant returns the first one's limbs.
+c, b, a; with --turns N that sequence N times), and whether every variant
+returns the first one's limbs.  --parent DIR adds to every picked kernel
+the build "parent": the same source file and flags from the checkout DIR
+(an unpacked parent commit), for the before-and-after of a change; --only
+VAR ... keeps those variants alone (e.g. --only team parent); with
+--together, --pairing swaps all picked kernels at once (the package's
+builds against the parent's, say).
 With --pairing it then times `ate.pairing_batch` at B = 8192 with the
 package's build of each picked team kernel swapped for its one-thread build,
 one kernel at a time, and, when fq12_mul024_pre and fq12_sq are both picked,
@@ -40,6 +52,7 @@ replays of one call captured as a CUDA graph (the card's pace: no Python
 between launches); and whether every result equals the team's.  Run from the repository root on a
 machine with a GPU and nvcc:
     python3 tools/torch_kernel_variants.py [kernel ...] [--batch B ...] [--pairing]
+        [--turns N] [--parent DIR] [--only VAR ...] [--together]
 where the optional labels (e.g. fq12_mul) pick kernels, all by default, and
 --batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
 32 is one block of a team alone on the card; 132 * 32 = 4224 one block on
@@ -111,6 +124,17 @@ OWN_VARIANTS = {
         "thread": [],
         "lanes_8": ["-DBN_POW_LANES=8"],
     },
+    "fq12_mul024": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_1_block": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MUL024_MIN_BLOCKS=1"],
+    },
+    **{label: {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        "team_1_block": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MILLER_SQ_MIN_BLOCKS=1", "-DBN_MILLER_MIN_BLOCKS=1"],
+        "team_2_blocks": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MILLER_SQ_MIN_BLOCKS=2", "-DBN_MILLER_MIN_BLOCKS=2"],
+    } for label in ("miller_step square", "miller_step no square")},
 }
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
@@ -420,6 +444,103 @@ extern "C" int bn_pow_fixed(const void* a, void* o, long long rows, long long B,
   return (int)cudaGetLastError();
 }
 """
+MUL024_LINE_THREAD_SOURCE = r"""
+// Sparse line multiply with the line as the precompute emits it.  Replaces the
+// Pallas TPU kernel fq12_mul024 (bn_tpu/ops/tower_pallas.py, body
+// _fq12_mul024_body), which tower.fq12_mul_by_024 calls.
+//
+// f is an Fq12 element and `coeff` the (3, 2) struct (ell_0, ell_vw, ell_vv),
+// unscaled; the product is f * ((ell_0 + ell_vv v) + ell_vw v w).  Against
+// kernel_fq12_mul024_pre.cu only the loads differ: the unscaled struct holds
+// ell_vw in slot 1 and ell_vv in slot 2, and fq12_mul_by_024 takes them as
+// x4 and x2 (fq12_mul_by_line in tower.cuh).
+//
+// One thread owns one element and reduces after every product: 39 base-field
+// products of 136 multiply-adds against (12 + 6 + 12) * 64 bytes moved per
+// element, so integer multiply-add throughput bounds it on an H100.  Register
+// pressure and block size as in kernel_fq12_mul.cu; built with
+// -DBN_MUL_OUT_OF_LINE (ops/build.py) like the other Fq12 kernels.
+#include "launch.cuh"
+#include "tower.cuh"
+
+#define BN_BLOCK12 64
+
+__global__ void __launch_bounds__(BN_BLOCK12)
+k_fq12_mul024(const int32_t* __restrict__ f, const int32_t* __restrict__ coeff, int32_t* __restrict__ o,
+              int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t row = t / B, b = t % B;
+  int64_t off = row * 12 * BN_NLIMB * B + b;
+  EllCoeffs c = ell_load(coeff + row * 6 * BN_NLIMB * B + b, B);
+  fq12_store(o + off, B, fq12_mul_by_line(fq12_load(f + off, B), c, m));
+}
+
+extern "C" int bn_fq12_mul024(const void* f, const void* coeff, void* o, long long rows, long long B,
+                              const uint32_t* mod, uint32_t inv, void* stream) {
+  k_fq12_mul024<<<bn_grid(rows * B, BN_BLOCK12), BN_BLOCK12, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)f, (const int32_t*)coeff, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+MILLER_THREAD_SOURCE = r"""
+// One step of the Miller loop in one launch.  Replaces the Pallas TPU kernel
+// miller_step (bn_tpu/ops/tower_pallas.py, body _miller_step_body, built as
+// the two kinds miller_sq_step and miller_step), which bn_tpu/ate.py runs once
+// per ladder step under BN_TPU_FUSED_MILLER=1.
+//
+// One thread owns one batch element: it loads f (an Fq12), the step's line
+// coefficients (ell_0, ell_vw, ell_vv) as the precompute emitted them and the
+// affine G1 point (px, py), squares f on a doubling step, scales ell_vw by py
+// and ell_vv by px and multiplies the line in sparsely (fq12_miller_step in
+// tower.cuh), then stores f.  The hoisted loop of ate.py does the same work in
+// two launches a step (fq12_sq, fq12_mul024_pre) after one scaling of all 102
+// steps; here f stays in registers between the square and the multiply.
+//
+// 79 base-field products of 136 multiply-adds with the square, 43 without,
+// against (12 + 6 + 1 + 1 + 12) * 64 bytes moved per element: integer
+// multiply-add throughput bounds it on an H100.  kSquare is a template
+// parameter, so each kind is its own entry, and the C entry's `square` flag
+// picks one, as kernels_curve.cu picks G1 or G2.  f, the coefficients and the
+// two coordinates are 160 words a thread, more than the 255 registers hold
+// with the square's temporaries: built with -DBN_MUL_OUT_OF_LINE
+// (ops/build.py) like the other Fq12 kernels.  The result goes to a
+// destination the wrapper names, never an operand (__restrict__).
+#include "launch.cuh"
+#include "tower.cuh"
+
+#define BN_BLOCK12 64
+
+template <bool kSquare>
+__global__ void __launch_bounds__(BN_BLOCK12)
+k_miller_step(const int32_t* __restrict__ f, const int32_t* __restrict__ coeff, const int32_t* __restrict__ px,
+              const int32_t* __restrict__ py, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t row = t / B, b = t % B;
+  int64_t off = row * 12 * BN_NLIMB * B + b;
+  int64_t off1 = row * BN_NLIMB * B + b;
+  EllCoeffs c = ell_load(coeff + row * 6 * BN_NLIMB * B + b, B);
+  Fq12 r = fq12_miller_step<kSquare>(fq12_load(f + off, B), c, fq_load(px + off1, B), fq_load(py + off1, B), m);
+  fq12_store(o + off, B, r);
+}
+
+// square = 1: a doubling step (f^2 first); square = 0: an addition step.
+extern "C" int bn_miller_step(const void* f, const void* coeff, const void* px, const void* py, void* o,
+                              long long rows, long long B, int square, const uint32_t* mod, uint32_t inv,
+                              void* stream) {
+  unsigned grid = bn_grid(rows * B, BN_BLOCK12);
+  cudaStream_t s = (cudaStream_t)stream;
+  Mod m = bn_make_mod(mod, inv);
+  if (square)
+    k_miller_step<true><<<grid, BN_BLOCK12, 0, s>>>((const int32_t*)f, (const int32_t*)coeff, (const int32_t*)px,
+                                                    (const int32_t*)py, (int32_t*)o, rows, B, m);
+  else
+    k_miller_step<false><<<grid, BN_BLOCK12, 0, s>>>((const int32_t*)f, (const int32_t*)coeff, (const int32_t*)px,
+                                                     (const int32_t*)py, (int32_t*)o, rows, B, m);
+  return (int)cudaGetLastError();
+}
+"""
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
     ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
@@ -431,8 +552,12 @@ OWN_SOURCES = {
     ("fq12_cyclo_sq", "thread"): CYCLO_SQ_THREAD_SOURCE,
     ("fq12_cyclo_sq", "team_chain_block"): CYCLO_SQ_CHAIN_BLOCK_SOURCE,
     ("pow_fixed", "thread"): POW_THREAD_SOURCE,
+    ("fq12_mul024", "thread"): MUL024_LINE_THREAD_SOURCE,
+    ("miller_step square", "thread"): MILLER_THREAD_SOURCE,
+    ("miller_step no square", "thread"): MILLER_THREAD_SOURCE,
 }
 PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
+NOT_IN_PAIRING = ("fq12_mul024",)  # kernels pairing_batch never launches: --pairing does not swap them
 # swapped together too when both are picked: the Miller loop's two teams, the precompute's two,
 # the Fermat inversion's group with the single cyclotomic squaring
 TEAM_PAIRS = (("fq12_mul024_pre", "fq12_sq"), ("double_step", "madd_step"), ("pow_fixed", "fq12_cyclo_sq"))
@@ -475,6 +600,11 @@ def main():
                     help="time pairing_batch with each picked team kernel's team and one-thread builds swapped in")
     ap.add_argument("--sass", action="store_true",
                     help="count each build's SASS instructions (cuobjdump) and the instructions of its loops")
+    ap.add_argument("--turns", type=int, default=1, help="times to run the sequence of turns")
+    ap.add_argument("--parent", type=Path, help="a checkout whose build of each picked kernel is the variant 'parent'")
+    ap.add_argument("--only", nargs="+", help="the variants to build and time, of those a kernel has")
+    ap.add_argument("--together", action="store_true",
+                    help="with --pairing, swap every picked kernel at once, in place of one at a time and in pairs")
     args = ap.parse_args()
     picked = args.kernels
     unknown = [k for k in picked if k not in KERNELS]
@@ -482,15 +612,23 @@ def main():
         sys.exit(f"unknown kernels {unknown}; known: {list(KERNELS)}")
     out_dir = build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
+
+    def variants_of(label):
+        """variant -> (nvcc flags, source path or None for the package's)"""
+        stem = build.ENTRIES[KERNELS[label][0]][0]
+        out = {var: (flags, None) for var, flags in OWN_VARIANTS.get(label, VARIANTS).items()}
+        if args.parent is not None:
+            out["parent"] = (build.SOURCE_FLAGS.get(stem, []), args.parent / "bn_tpu_torch" / "csrc" / f"{stem}.cu")
+        return {v: x for v, x in out.items() if args.only is None or v in args.only}
+
     # start every compile at once (one per source and variant), then wait;
     # time each by its own clock
     procs = {}
     for label in picked:
         stem = build.ENTRIES[KERNELS[label][0]][0]
-        for var, flags in OWN_VARIANTS.get(label, VARIANTS).items():
+        for var, (flags, src) in variants_of(label).items():
             if (stem, var) not in procs:
                 so = out_dir / f"lib{stem}.{var}.so"
-                src = None
                 if (label, var) in OWN_SOURCES:
                     src = out_dir / f"{stem}.{var}.cu"
                     src.write_text(OWN_SOURCES[label, var])
@@ -518,7 +656,7 @@ def main():
     for label, batch, own in runs:
         name, structs, n_out, _ = KERNELS[label]
         stem = build.ENTRIES[name][0]
-        variants = list(OWN_VARIANTS.get(label, VARIANTS))
+        variants = list(variants_of(label))
         ins = []
         for st in structs:
             idx = torch.from_numpy(rng.integers(0, B, size=tuple(st) + (batch,))).to(dev)
@@ -542,7 +680,7 @@ def main():
             outs[var] = o
             ms[var].append(t0.elapsed_time(t1) / 50)
 
-        for var in variants + variants[::-1]:
+        for var in (variants + variants[::-1]) * args.turns:
             run(var)
         for var in variants:
             log = logs[stem, var]  # of the whole source: every entry in it
@@ -558,11 +696,17 @@ def main():
             }), flush=True)
 
     if args.pairing:
-        swaps = [(k,) for k in OWN_VARIANTS if k in picked]
-        swaps += [pair for pair in TEAM_PAIRS if all(k in picked for k in pair)]
+        entries = [KERNELS[k][0] for k in picked if k in OWN_VARIANTS and KERNELS[k][0] not in NOT_IN_PAIRING]
+        if args.together:
+            swaps = [tuple(dict.fromkeys(entries))]
+        else:
+            swaps = [(k,) for k in dict.fromkeys(entries)]
+            swaps += [pair for pair in TEAM_PAIRS if all(k in entries for k in pair)]
+        builds = [v for v in PAIRING_VARIANTS + ("parent",) if args.only is None or v in args.only]
         for kernels in swaps:
             time_pairing(kernels, {var: {k: libs[build.ENTRIES[k][0], var] for k in kernels}
-                                   for var in PAIRING_VARIANTS}, card)
+                                   for var in builds if all((build.ENTRIES[k][0], var) in libs for k in kernels)},
+                         card)
 
 
 def sass_counts(so):
