@@ -77,10 +77,13 @@ struct TeamNoMarks {
 // write entries no other warp of the phase reads or writes.  `marks(i)` is
 // called at the start (0), after phase p's work (1 + 2p) and after the
 // barrier that follows it (2 + 2p): it does nothing in the package's kernels,
-// and tools/torch_fq12_team_phases.py reads the clock there.
+// and tools/torch_fq12_team_phases.py reads the clock there.  team_block_on
+// runs the same on a Team::Shared the kernel provides: dynamic shared memory,
+// for a team whose Shared is above the 48 KB a static one may take
+// (kernels_curve.cu).
 template <class Team, class Marks>
-__device__ __forceinline__ void team_block(const Team& team, int64_t n, int64_t B, const Mod& m, Marks& marks) {
-  __shared__ typename Team::Shared shared;
+__device__ __forceinline__ void team_block_on(const Team& team, typename Team::Shared& shared, int64_t n, int64_t B,
+                                              const Mod& m, Marks& marks) {
   marks(0);
   const TeamLane t = team_lane(n);
 #pragma unroll
@@ -92,5 +95,11 @@ __device__ __forceinline__ void team_block(const Team& team, int64_t n, int64_t 
       marks(2 + 2 * p);
     }
   }
+}
+
+template <class Team, class Marks>
+__device__ __forceinline__ void team_block(const Team& team, int64_t n, int64_t B, const Mod& m, Marks& marks) {
+  __shared__ typename Team::Shared shared;
+  team_block_on(team, shared, n, B, m, marks);
 }
 #endif

@@ -69,14 +69,18 @@ ENTRIES = {
     "double_step": ("kernels_g2_step", [_P, _P, _P, _LL, _LL, ctypes.POINTER(_U32)] + _MODARGS),
     # r, base, r_out, coeffs_out
     "madd_step": ("kernels_g2_step", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),
-    # x1, y1, z1, x2, y2, z2, x3, y3, z3; the flag says G2 (coordinates over Fq2)
-    "point_add": ("kernels_curve", [_P] * 9 + [_LL, _LL, ctypes.c_int] + _MODARGS),
+    # x1, y1, z1, x2, y2, z2, x3, y3, z3; the flags say G2 (coordinates over
+    # Fq2) and the design (0: one thread a point, 1: the team)
+    "point_add": ("kernels_curve", [_P] * 9 + [_LL, _LL, ctypes.c_int, ctypes.c_int] + _MODARGS),
     # x, y, z, x3, y3, z3
-    "point_double": ("kernels_curve", [_P] * 6 + [_LL, _LL, ctypes.c_int] + _MODARGS),
-    # not a kernel of the pairing: the multiply-add rate probe chip_smoke.py uses
+    "point_double": ("kernels_curve", [_P] * 6 + [_LL, _LL, ctypes.c_int, ctypes.c_int] + _MODARGS),
+    # not kernels of the pairing: the multiply-add rate probe and the empty
+    # kernel (the launch floor) chip_smoke.py uses
     "imad_probe": ("kernels_fq", [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "empty_probe": ("kernels_fq", [ctypes.c_int, ctypes.c_int]),
 }
-KERNELS = tuple(k for k in ENTRIES if k != "imad_probe")
+PROBES = ("imad_probe", "empty_probe")
+KERNELS = tuple(k for k in ENTRIES if k not in PROBES)
 
 # launches per kernel since the last reset_counts()
 COUNTS = {k: 0 for k in KERNELS}

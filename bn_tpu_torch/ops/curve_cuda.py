@@ -4,7 +4,9 @@ plain versions.
 Counterpart of the JAX package's ops/curve_pallas.py.  Two functions —
 point_add, point_double — each with a wrapper that sends CPU tensors to the
 plain version and CUDA tensors to its kernel (csrc/kernels_curve.cu), and
-`<name>_plain`, the same function in plain PyTorch.  A point is a tuple
+`<name>_plain`, the same function in plain PyTorch.  Each kernel has two
+designs, a team of warps on 32 elements and one thread a point; the wrapper
+picks one by the number of lanes (`design_for`).  A point is a tuple
 (x, y, z) of coordinate tensors, (..., 16, B) int32 for G1 and (..., 2, 16, B)
 for G2, batch last; the coordinates stay separate tensors all the way into
 the kernel (nothing is stacked around a call).
@@ -20,6 +22,7 @@ operands: `acc = point_add(name, acc, g)` leaves the old `acc` untouched.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -29,6 +32,18 @@ from . import limbs as lb
 from .mont_cuda import _m_limbs, _on_card, broadcast, fq2_mul_plain, fq2_sq_plain, launch
 
 STRUCTS = {"G1": (), "G2": (2,)}
+
+# The designs of the curve kernels, by the C entries' design argument: one
+# thread a point (0), the team of csrc/curve_team.cuh (1).
+DESIGNS = ("thread", "team")
+# Lanes (rows * B) from which a call of each kernel goes to the one-thread
+# design, for G1 and G2; below, to the team.  tools/torch_kernel_variants.py
+# times both designs in turns from 1 to 2^20 lanes on an H100 (PERF.md): the
+# team wins from a batch of one (the MSM's Horner doublings) to 8448 lanes,
+# one wave of its blocks (132 multiprocessors, two blocks of 32 lanes each),
+# curve.mul's 8192 among them.  Past that wave the doubling loses; the
+# addition wins up to 12,288 and loses from 2^14 on, the MSM's 2^20 included.
+THREAD_FROM_LANES = {"point_add": 1 << 14, "point_double": 132 * 2 * 32 + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -173,17 +188,47 @@ def _coords(spec_name: str, *points):
     return broadcast(*(t for pt in points for t in pt))
 
 
+def design_for(name: str, lanes: int) -> str:
+    """The design a call of kernel `name` on `lanes` points (rows * B) of
+    either group launches: the shape decides, nothing else (`forced_design`
+    aside)."""
+    return "thread" if lanes >= THREAD_FROM_LANES[name] else "team"
+
+
+@contextlib.contextmanager
+def forced_design(design: str):
+    """Every curve launch in the block of `design`, whatever its width: the
+    hook of the checks and tools that hold or time one design at any width
+    (chip_smoke.py, tools/torch_kernel_variants.py)."""
+    global design_for
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}: the designs are {DESIGNS}")
+    rule = design_for
+    design_for = lambda name, lanes: design  # noqa: E731
+    try:
+        yield
+    finally:
+        design_for = rule
+
+
+def _launch(name: str, spec_name: str, coords):
+    st = STRUCTS[spec_name]
+    design = design_for(name, coords[0].numel() // (P.NLIMBS * (len(st) + 1)))
+    return launch(name, coords, (st,) * len(coords), P.Q, extra=(len(st), DESIGNS.index(design)),
+                  out_structs=(st,) * 3, instance=design)
+
+
 def point_double_plain(spec_name: str, p):
     return jac_double(_plain_field(spec_name), _coords(spec_name, p))
 
 
 def point_double(spec_name: str, p):
-    """2p for a batch of Jacobian points of G1 or G2 (`spec_name`); one launch."""
+    """2p for a batch of Jacobian points of G1 or G2 (`spec_name`); one launch,
+    of the design design_for picks."""
     coords = _coords(spec_name, p)
     if not _on_card(*coords):
         return jac_double(_plain_field(spec_name), coords)
-    st = STRUCTS[spec_name]
-    return launch("point_double", coords, (st,) * 3, P.Q, extra=(len(st),), out_structs=(st,) * 3)
+    return _launch("point_double", spec_name, coords)
 
 
 def point_add_plain(spec_name: str, p, q):
@@ -193,9 +238,9 @@ def point_add_plain(spec_name: str, p, q):
 
 def point_add(spec_name: str, p, q):
     """p + q for batches of Jacobian points of G1 or G2, with every degenerate
-    case (an infinite operand, p = q, p = -q); one launch."""
+    case (an infinite operand, p = q, p = -q); one launch, of the design
+    design_for picks."""
     coords = _coords(spec_name, p, q)
     if not _on_card(*coords):
         return jac_add(_plain_field(spec_name), coords[:3], coords[3:])
-    st = STRUCTS[spec_name]
-    return launch("point_add", coords, (st,) * 6, P.Q, extra=(len(st),), out_structs=(st,) * 3)
+    return _launch("point_add", spec_name, coords)

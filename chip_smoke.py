@@ -17,14 +17,19 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     pow, with the Fermat exponent and one with a zero digit inside; the
     squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
     `miller_step` in both instantiations, with and without the square;
-    `point_add` and `point_double` for G1 and G2 on points that hold, at both
-    ends of the batch, P + inf, inf + Q, inf + inf, P + P, P + (-P) and one
-    point under two z, timed for G1 and G2 at B = 8192 and for G1 at 2^20).
+    `point_add` and `point_double` for G1 and G2 in each of their two
+    designs, the team of csrc/curve_team.cuh and one thread a point, on
+    points that hold, at both ends of the batch, P + inf, inf + Q, inf +
+    inf, P + P, P + (-P) and one point under two z, at B = 37, lead 3, at
+    B = 1 and at B = 8192, each design timed for G1 and G2 at B = 8192 and
+    for G1 at 2^20; the wrapper's own pick by width at the ragged batch).
     Tolerance: none, the limbs are integers and `max_abs_err` must be 0.  It
     times both (the kernel by replaying a CUDA graph of 50 launches, so `ms`
     is the card's time; the eager call, host included, is `wrapper_ms`),
     measures the card's 32x32->64-bit multiply-add rate with a register-only
-    probe, and from that rate and the published memory rate computes each
+    probe and the launch floor with an empty kernel (the same graph replay,
+    at one block and at the grids rows 1-7 launch), and from that rate and
+    the published memory rate computes each
     kernel's bound at the timed shape; the ten kernels that give 32
     elements to a block, the teams `fq12_mul`, `fq12_sq`, `fq12_mul024_pre`,
     the chain, `fq12_cyclo_sq`, `double_step`, `madd_step`, `fq12_mul024` and
@@ -64,7 +69,8 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     Granger-Scott members that the fused and the unfused paths both run;
  7. `curve_path`: `curve.mul` for G1 and G2 on 1024 lanes with the
     `curve_kernels` switch on and off: the same limbs, with it on exactly 256
-    `point_double` and 256 `point_add` launches a ladder and no `mod_add`;
+    `point_double` and 256 `point_add` launches a ladder and no `mod_add`
+    (of the design the wrapper picks at that width, counted by design);
     both timed at B = 8192 in turns;
  8. `api_path` at B = 8192 through bn_tpu_torch.api only: random Fr, G1, G2
     from seeds, byte round trips (the G2 decode runs the batched subgroup
@@ -76,7 +82,9 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
  9. `msm_path`: the Pippenger MSM at n = 2^20, c = 16 — points k_i G made on
     the card by one ladder, seeded scalars, the host schedule, `msm_run`, the
     result equal to (sum s_i k_i mod r) G from the oracle, launch counts
-    equal to what the schedule implies — then a small skewed case that forces
+    equal to what the schedule implies (and counted by design: the
+    one-thread design at the rounds' 2^20 lanes, the team below) — then a
+    small skewed case that forces
     window-local spill rounds, and the MSM at n = 2^12 with `curve_kernels`
     off, equal limbs;
  9b. `dist_path`: bn_tpu_torch.parallel.dist in one process, an NCCL group
@@ -93,6 +101,7 @@ plain version, a lane that differs from the oracle — ends the run with a
 non-zero exit code and no result line.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -167,6 +176,11 @@ PTXAS_NAMES = {
     "fq12_mul024": "13k_fq12_mul024", "miller_step": "13k_miller_stepILb1E",
 }
 PTXAS_NAMES_G2 = {"point_add": "11k_point_addI3Fq2E", "point_double": "14k_point_doubleI3Fq2E"}
+# the curve kernels' team design (k_curve_team<CurveTeam<F, add>>), G1 and G2
+PTXAS_NAMES_TEAM = {"point_add": "12k_curve_teamI9CurveTeamI2FqLb1EEE",
+                    "point_double": "12k_curve_teamI9CurveTeamI2FqLb0EEE"}
+PTXAS_NAMES_TEAM_G2 = {"point_add": "12k_curve_teamI9CurveTeamI3Fq2Lb1EEE",
+                       "point_double": "12k_curve_teamI9CurveTeamI3Fq2Lb0EEE"}
 PTXAS_NAMES_NO_SQ = {"miller_step": "13k_miller_stepILb0E"}
 
 
@@ -264,6 +278,11 @@ def main():
         ptxas[name + "_g2"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     for name, frag in PTXAS_NAMES_NO_SQ.items():
         ptxas[name + "_no_sq"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
+    for suffix, names in (("_team", PTXAS_NAMES_TEAM), ("_team_g2", PTXAS_NAMES_TEAM_G2)):
+        for name, frag in names.items():
+            ptxas[name + suffix] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
+            if ptxas[name + suffix] is None:
+                fail(f"ptxas -v reported no entry {frag}: the team of {name} was not built")
     emit({"phase": "device", "card": smi, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 2), "sources": build.sources(), "ptxas": ptxas})
@@ -299,8 +318,23 @@ def main():
         for _ in range(3)
     )
     madd_per_s = blocks * threads * iters * chains / (probe_ms * 1e-3)
+    # the launch floor: an empty kernel, timed as every kernel row is (graph
+    # replay of 50 launches), at one block and at each grid of 128-thread
+    # blocks that rows 1-7 launch at B = 8192
+    floor_cache = {}
+
+    def launch_floor_ms(n_blocks, n_threads=128):
+        if (n_blocks, n_threads) not in floor_cache:
+            floor_cache[n_blocks, n_threads] = device_ms(
+                lambda: build.launch("empty_probe", dev, n_blocks, n_threads), 50)
+        return floor_cache[n_blocks, n_threads]
+
+    floor_one_block = launch_floor_ms(1, 32)
     emit({"phase": "probe", "what": "32x32->64-bit multiply-add with 64-bit addend, register only",
-          "madds": blocks * threads * iters * chains, "ms": probe_ms, "madd_per_s": madd_per_s, "card": smi})
+          "madds": blocks * threads * iters * chains, "ms": probe_ms, "madd_per_s": madd_per_s,
+          "launch_floor_ms": {"1 block of 32 threads": floor_one_block,
+                              **{f"{b} blocks of 128 threads": launch_floor_ms(b) for b in (64, 128, 320)}},
+          "card": smi})
 
     # ---- phase 2: the main path's inputs --------------------------------------
     B = B_MAIN
@@ -434,6 +468,10 @@ def main():
             "spill_load_bytes": (ptxas[name] or {}).get("spill_load_bytes"),
             "stack_bytes": (ptxas[name] or {}).get("stack_bytes"),
         }
+        if source == "kernels_fq.cu":  # one element a thread, 128 threads a block: the floor of its grid
+            elements = ins[0].numel() // P.NLIMBS // (2 if name.startswith("fq2_") else 1)
+            row["launch_floor_ms"] = launch_floor_ms(math.ceil(elements / 128))
+            row["above_floor_plus_bound_ms"] = ms - row["launch_floor_ms"] - row["bound_ms"]
         if name in TEAM_KERNELS:  # the launch at this shape, from the loaded library
             dims = (ctypes.c_longlong * 3)()
             rows, batch = math.prod(ins[0].shape[:-(len(structs[0]) + 2)]), ins[0].shape[-1]
@@ -490,68 +528,111 @@ def main():
             out.append(tuple(torch.movedim(t.reshape(t.shape[:-1] + (3, B_RAGGED)), -2, 0).contiguous() for t in flat))
         return with_degenerate_lanes(spec, *out)
 
-    def curve_call(name, group, pp, qq, plain=False):
-        fn = getattr(cc, name + ("_plain" if plain else ""))
-        return fn(group, pp, qq) if name == "point_add" else fn(group, pp)
+    def curve_call(name, group, pp, qq, plain=False, design=None):
+        if plain:
+            fn = getattr(cc, name + "_plain")
+            return fn(group, pp, qq) if name == "point_add" else fn(group, pp)
+        fn = getattr(cc, name)
+        with cc.forced_design(design) if design else contextlib.nullcontext():
+            return fn(group, pp, qq) if name == "point_add" else fn(group, pp)
 
-    def curve_timing(name, group, pp, qq, plain_lanes=None):
+    def curve_timing(name, group, pp, qq, plain_lanes=None, design=None):
         """Card time, eager time, plain time and bound of one call at the
-        shape of pp; the result must equal the plain version's.  At the MSM's
-        width the plain version (int64 partial products) runs on the first
-        `plain_lanes` lanes only, and its time is for those."""
-        got = curve_call(name, group, pp, qq)
+        shape of pp, of `design` (None: the wrapper's pick); the result must
+        equal the plain version's.  At the MSM's width the plain version
+        (int64 partial products) runs on the first `plain_lanes` lanes only,
+        and its time is for those."""
+        got = curve_call(name, group, pp, qq, design=design)
         cut = slice(None, plain_lanes)
         pl, ql = (tuple(t[..., cut] for t in pt) for pt in (pp, qq))
         want = curve_call(name, group, pl, ql, plain=True)
         torch.cuda.synchronize()
-        err = compare(name, tuple(t[..., cut] for t in got), want, f"for {group} at B={pp[0].shape[-1]}")
+        err = compare(name, tuple(t[..., cut] for t in got), want,
+                      f"for {group} at B={pp[0].shape[-1]}, design {design or 'picked'}")
         ins = pp + qq if name == "point_add" else pp
         n_bytes = 4 * (sum(t.numel() for t in ins) + sum(t.numel() for t in got))
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         products = CURVE_KERNELS[name][1 if group == "G1" else 2]
         ops_ms = pp[0].shape[-1] * products * MADDS_PER_PRODUCT / madd_per_s * 1e3
         return err, {
-            "ms": device_ms(lambda: curve_call(name, group, pp, qq), 50),
-            "wrapper_ms": timed_ms(lambda: curve_call(name, group, pp, qq), 50),
+            "ms": device_ms(lambda: curve_call(name, group, pp, qq, design=design), 50),
+            "wrapper_ms": timed_ms(lambda: curve_call(name, group, pp, qq, design=design), 50),
             "plain_ms": timed_ms(lambda: curve_call(name, group, pl, ql, plain=True), 3),
             "plain_lanes": pl[0].shape[-1],
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "shape": [list(t.shape) for t in ins], "bytes": n_bytes, "products_per_element": products,
         }
 
+    curve_lib = ctypes.CDLL(str(build.lib_path("kernels_curve")))
+
+    def curve_build(name, group, design, lanes):
+        """The launch of `design` for `lanes` points (bn_point_launch: blocks,
+        threads, shared bytes) and what ptxas said."""
+        out = (ctypes.c_longlong * 3)()
+        if curve_lib.bn_point_launch(int(name == "point_add"), int(group == "G2"), cc.DESIGNS.index(design),
+                                     ctypes.c_longlong(1), ctypes.c_longlong(lanes), out) != 0:
+            fail(f"cudaFuncGetAttributes refused the {design} design of {name} for {group}")
+        key = name + ("_team" if design == "team" else "") + ("_g2" if group == "G2" else "")
+        return {"blocks": out[0], "block_threads": out[1], "shared_bytes": out[2],
+                **{k: (ptxas[key] or {}).get(k)
+                   for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")}}
+
     def neighbours(pt):
         """The same points one lane on: a generic second operand."""
         return tuple(torch.roll(t, 1, dims=-1) for t in pt)
 
+    def degenerate_lanes_ok(spec, got):
+        inf = curve.is_zero(spec, got)[0]
+        return inf[:6].tolist() == [False, False, True, False, True, False] and inf[-6:].tolist() == inf[:6].tolist()
+
     for name, (replaces, _, _) in CURVE_KERNELS.items():
         max_err = 0
+        designs = {d: {} for d in cc.DESIGNS}
         for spec, seed in ((g1s, 31), (g2s, 32)):
             pp, qq = ragged_points(spec, seed)
             build.reset_counts()
             got = curve_call(name, spec.name, pp, qq)
             torch.cuda.synchronize()
-            if build.COUNTS[name] != 1:
-                fail(f"wrapper {name} counted {build.COUNTS[name]} launches for one call")
+            picked = cc.design_for(name, 3 * B_RAGGED)
+            if build.COUNTS[name] != 1 or build.INSTANCE_COUNTS[name, picked] != 1:
+                fail(f"wrapper {name} counted {build.COUNTS[name]} launches for one call, "
+                     f"{dict(build.INSTANCE_COUNTS)} by design")
             where = f"for {spec.name} at B={B_RAGGED}, lead 3, degenerate lanes in"
             max_err = max(max_err, compare(name, got, curve_call(name, spec.name, pp, qq, plain=True), where))
-            if name == "point_add":  # the degenerate lanes did what the group law says
-                inf = curve.is_zero(spec, got)[0]
-                if inf[:6].tolist() != [False, False, True, False, True, False] or inf[-6:].tolist() != inf[:6].tolist():
-                    fail(f"point_add for {spec.name}: the degenerate lanes gave infinity at {inf[:6].tolist()}")
-                if any(t.data_ptr() == o.data_ptr() for t in pp + qq for o in got):
-                    fail("point_add returned one of its operands")
-            # a batch of one, as the MSM's Horner combine gives it
-            one_p, one_q = (tuple(t[0, ..., 7:8].contiguous() for t in pt) for pt in (pp, qq))
-            max_err = max(max_err, compare(name, curve_call(name, spec.name, one_p, one_q),
-                                           curve_call(name, spec.name, one_p, one_q, plain=True), "at B=1"))
-        err, main = curve_timing(name, "G1", p, neighbours(p))
-        err_g2, g2 = curve_timing(name, "G2", q, neighbours(q))
+            if name == "point_add" and any(t.data_ptr() == o.data_ptr() for t in pp + qq for o in got):
+                fail("point_add returned one of its operands")
+            # each design, whatever the wrapper would pick: the ragged batch with
+            # the degenerate lanes, blocks of 32 that straddle the rows, a batch
+            # of one (the MSM's Horner combine gives it), and the main path's B
+            straddle = tuple(tuple(t[..., :B_STRADDLE].contiguous() for t in pt) for pt in (pp, qq))
+            one = tuple(tuple(t[0, ..., 7:8].contiguous() for t in pt) for pt in (pp, qq))
+            for design in cc.DESIGNS:
+                for what, (a, b) in ((where, (pp, qq)), (f"for {spec.name} at B={B_STRADDLE}, lead 3", straddle),
+                                     (f"for {spec.name} at B=1", one)):
+                    got_d = curve_call(name, spec.name, a, b, design=design)
+                    max_err = max(max_err, compare(name, got_d, curve_call(name, spec.name, a, b, plain=True),
+                                                   f"in the {design} design {what}"))
+                    if name == "point_add" and a is pp and not degenerate_lanes_ok(spec, got_d):
+                        fail(f"point_add ({design}) for {spec.name}: the degenerate lanes gave infinity at "
+                             f"{curve.is_zero(spec, got_d)[0][:6].tolist()}")
+                pt = p if spec.name == "G1" else q
+                err, at_main = curve_timing(name, spec.name, pt, neighbours(pt), design=design)
+                max_err = max(max_err, err)
+                designs[design][spec.name] = {**at_main, **curve_build(name, spec.name, design, B_MAIN)}
+        pick = cc.design_for(name, B_MAIN)
+        main, g2 = designs[pick]["G1"], designs[pick]["G2"]
         row = {"name": name, "route": "cuda", "source": "bn_tpu_torch/csrc/kernels_curve.cu", "replaces": replaces,
-               "launches": None, "max_abs_err": max(max_err, err, err_g2), "equal": True, **main,
-               "library_ms": None, "static": "G1",
-               **{k + "_g2": v for k, v in g2.items()},
-               **{k: (ptxas[name] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
-               **{k + "_g2": (ptxas[name + "_g2"] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")}}
+               "launches": None, "max_abs_err": max_err, "equal": True,
+               **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "plain_lanes", "bound_ms", "bound_by",
+                                       "shape", "bytes", "products_per_element")},
+               "library_ms": None, "static": "G1", "design": pick,
+               **{k + "_g2": g2[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                                             "bytes", "products_per_element")},
+               "registers": main["registers"], "spill_store_bytes": main["spill_store_bytes"],
+               "spill_load_bytes": main["spill_load_bytes"], "stack_bytes": main["stack_bytes"],
+               "registers_g2": g2["registers"], "spill_store_bytes_g2": g2["spill_store_bytes"],
+               "designs": designs,
+               "thread_from_lanes": cc.THREAD_FROM_LANES[name]}
         kernel_rows.append(row)
     emit({"phase": "kernels", "compared": [r["name"] for r in kernel_rows], "all_equal": True,
           "ragged_batch": B_RAGGED, "team_straddle_batch": B_STRADDLE, "tolerance": 0})
@@ -734,6 +815,7 @@ def main():
         on = curve.mul(spec, base, ksmall)
         torch.cuda.synchronize()
         counts_on = {k_: v for k_, v in build.COUNTS.items() if v}
+        designs_on = {f"{k_}/{d_}": v for (k_, d_), v in build.INSTANCE_COUNTS.items()}
         if counts_on != {"mont_mul": 1, "point_double": 256, "point_add": 256}:
             fail(f"curve.mul for {spec.name} on the curve kernels launched {counts_on}")
         build.reset_counts()
@@ -751,7 +833,8 @@ def main():
             times["on"].append(clock(lambda: curve.mul(spec, full, k))[1] * 1e3)
             with backend.fusions(curve_kernels=False):
                 times["off"].append(clock(lambda: curve.mul(spec, full, k))[1] * 1e3)
-        curve_path[spec.name] = {"launches_on": counts_on, "launches_off": counts_off,
+        curve_path[spec.name] = {"launches_on": counts_on, "launches_on_by_design": designs_on,
+                                 "launches_off": counts_off,
                                  "launches_off_total": sum(counts_off.values()), "equal_limbs": True,
                                  "mul_ms_runs": times, "mul_ms": {k_: min(v) for k_, v in times.items()}}
     emit(curve_path)
@@ -881,11 +964,15 @@ def main():
     (jac, (px, py, pz)), points_s = clock(make_points)
     points_peak = torch.cuda.max_memory_allocated()
     # the curve kernels at the MSM's width, on these points
+    # (both designs; the row's _g1_2p20 keys are those of the wrapper's pick)
     for row in kernel_rows:
         if row["name"] in CURVE_KERNELS:
-            err, at_msm = curve_timing(row["name"], "G1", jac, neighbours(jac), plain_lanes=1 << 16)
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row.update({k_ + "_g1_2p20": v for k_, v in at_msm.items()})
+            for design in cc.DESIGNS:
+                err, at_msm = curve_timing(row["name"], "G1", jac, neighbours(jac), plain_lanes=1 << 16, design=design)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["designs"][design]["G1_2p20"] = {**at_msm, **curve_build(row["name"], "G1", design, n_msm)}
+            row["design_g1_2p20"] = cc.design_for(row["name"], n_msm)
+            row.update({k_ + "_g1_2p20": v for k_, v in row["designs"][row["design_g1_2p20"]]["G1_2p20"].items()})
     # every one of the 2^20 lanes against the plain version, in the shape the
     # MSM's shift-scans give the kernels: (w, 16, 2^c) with the windows in front;
     # the flat call must give the same lanes
@@ -926,6 +1013,7 @@ def main():
         res, dt = clock(lambda: msm.msm_run(px, py, pz, rounds, MSM_C))
         run_s.append(dt)
     counts_msm = {k_: v for k_, v in build.COUNTS.items() if v}
+    designs_msm = {f"{k_}/{d_}": v for (k_, d_), v in build.INSTANCE_COUNTS.items()}
     if counts_msm != expected_launches(first, spills, r_cap, MSM_C):
         fail(f"msm_run launched {counts_msm}, the schedule implies {expected_launches(first, spills, r_cap, MSM_C)}")
     expect = O.g1_mul(O.G1_ONE, sum(s_ * k_ for s_, k_ in zip(ss, ks)) % P.R_SCALAR)
@@ -985,7 +1073,8 @@ def main():
     emit({"phase": "msm_path", "n": n_msm, "c": MSM_C, "r_cap": r_cap, "R": int(first.shape[-1]),
           "spill_rounds": len(spills), "scalars_to_card_s": scalars_to_card_s, "points_s": points_s,
           "schedule_s": schedule_s, "run_s": run_s,
-          "points_per_s": n_msm / min(run_s), "launches": counts_msm, "oracle_exact": True,
+          "points_per_s": n_msm / min(run_s), "launches": counts_msm, "launches_by_design": designs_msm,
+          "oracle_exact": True,
           "stages_s": {"schedule_upload": upload_s, "gathers_alone": gather_s,
                        "accumulate_first_schedule": accumulate_s, "bucket_reduce": reduce_s},
           "peak_memory_bytes": msm_peak, "peak_memory_bytes_point_generation": points_peak,

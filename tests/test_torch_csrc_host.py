@@ -100,6 +100,8 @@ def host_lib(tmp_path_factory):
     lib.host_curve.argtypes = [ctypes.c_int, ctypes.c_int, pp, pp, ctypes.c_longlong, ctypes.c_longlong,
                                u32p, ctypes.c_uint32]
     lib.host_curve.restype = ctypes.c_int
+    lib.host_curve_team.argtypes = [ctypes.c_int] * 3 + [pp, pp, ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
+    lib.host_curve_team.restype = ctypes.c_int
     lib.host_miller_step.argtypes = [ctypes.c_int] + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
     lib.host_miller_step.restype = ctypes.c_int
     lib.host_miller_team.argtypes = [ctypes.c_int] * 2 + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
@@ -448,15 +450,21 @@ def test_header_group_pow_equals_plain_and_python_pow(host_lib, modulus, exponen
     assert TP.limbs_to_ints(got[0])[0] == 0 and TP.limbs_to_ints(got[-1])[-4] == 0  # 0 -> 0
 
 
-def _run_host_curve(lib, group, coords):
-    """jac_add (six coordinate arrays) or jac_double (three) of curve.cuh."""
+def _run_host_curve(lib, group, coords, reverse=None):
+    """jac_add (six coordinate arrays) or jac_double (three) of curve.cuh, or
+    with `reverse` set kernels_curve.cu's team of curve_team.cuh (reverse:
+    each phase's warps last to first)."""
     arrs = [np.ascontiguousarray(c.astype(np.int32)) for c in coords]
-    outs = [np.empty_like(arrs[0]) for _ in range(3)]
+    outs = [np.full_like(arrs[0], -1) for _ in range(3)]
     rows = int(np.prod(arrs[0].shape[: arrs[0].ndim - 2 - len(cc.STRUCTS[group])], dtype=np.int64))
     words, inv32 = mc._mod_args(TP.Q)
     ins_c = (ctypes.c_void_p * len(arrs))(*(a.ctypes.data for a in arrs))
     outs_c = (ctypes.c_void_p * 3)(*(o.ctypes.data for o in outs))
-    rc = lib.host_curve(int(len(arrs) == 6), len(cc.STRUCTS[group]), ins_c, outs_c, rows, arrs[0].shape[-1], words, inv32)
+    args = (ins_c, outs_c, rows, arrs[0].shape[-1], words, inv32)
+    if reverse is None:
+        rc = lib.host_curve(int(len(arrs) == 6), len(cc.STRUCTS[group]), *args)
+    else:
+        rc = lib.host_curve_team(int(len(arrs) == 6), len(cc.STRUCTS[group]), int(reverse), *args)
     assert rc == 0
     return outs
 
@@ -475,6 +483,58 @@ def test_header_point_add_and_double_equal_plain(host_lib, group, lead):
     want = cc.point_double_plain(group, _tensors(p))
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
+
+
+@functools.lru_cache(maxsize=None)
+def _curve_team_case(group, case):
+    """Points at lead 3 from curve_points (the degenerate pairs at both ends
+    of the flat batch: lane 3 adds a point to itself and lane 5 a point under
+    two z, so block 0 has lanes that take the doubling and lanes that do
+    not), and the plain version's sum and double.  "B1": B = 1, the MSM's
+    Horner width, at lead 12 (curve_points needs 12 points), one block
+    across the rows.  "B64-infinite-block": B = 64 with every lane of flat
+    block 2 (row 1, lanes 0-31) holding an infinite operand, q, p or both in
+    turn."""
+    batch = int(case[1:].split("-")[0])
+    p, q = curve_points(group, 410, (12, 1) if batch == 1 else (3, batch))
+    if case.endswith("infinite-block"):
+        p, q = [list(c.copy() for c in pt) for pt in (p, q)]
+        inf = [c[0, ..., 2] for c in p]  # flat lane 2 is infinity + infinity
+        for lane in range(32):
+            for k, c in enumerate(q if lane % 3 == 0 else p):
+                c[1, ..., lane] = inf[k]
+            if lane % 3 == 2:
+                for k, c in enumerate(q):
+                    c[1, ..., lane] = inf[k]
+        p, q = tuple(p), tuple(q)
+    want_add = tuple(w.numpy() for w in cc.point_add_plain(group, _tensors(p), _tensors(q)))
+    want_double = tuple(w.numpy() for w in cc.point_double_plain(group, _tensors(p)))
+    return p, q, want_add, want_double
+
+
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("case", ["B1", "B5", "B37", "B64", "B64-infinite-block"])
+@pytest.mark.parametrize("law", ["add", "double"])
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_header_curve_teams_equal_one_thread_and_plain(host_lib, group, law, case, order):
+    """kernels_curve.cu's teams (curve_team.cuh on team_block_on) at lead 3:
+    B = 5, one ragged block of 15 elements; B = 37, blocks of 32 that straddle
+    the rows, the last ragged; B = 64, blocks within rows, and once with a
+    block in which every lane has an infinite operand; and B = 1 at lead 12,
+    one ragged block across the rows.  One base-field product a warp: a
+    Montgomery product for G1, an Fq2 product for G2.  Warps of each phase in
+    order and last to first, the state poisoned at every block.  Equal, limb
+    for limb, to curve.cuh's one-thread jac_add / jac_double and to the plain
+    version, degenerate lanes included."""
+    p, q, want_add, want_double = _curve_team_case(group, case)
+    coords = p + q if law == "add" else p
+    got = _run_host_curve(host_lib, group, coords, reverse=order == "reverse")
+    one_thread = _run_host_curve(host_lib, group, coords)
+    for g, t, w in zip(got, one_thread, want_add if law == "add" else want_double):
+        assert np.array_equal(g, w) and np.array_equal(t, w)
+    if law == "add" and case.endswith("infinite-block"):  # q, p, or p = infinity itself, in turn
+        assert all(np.array_equal(got[k][1, ..., :32:3], p[k][1, ..., :32:3]) for k in range(3))
+        assert all(np.array_equal(got[k][1, ..., 1:32:3], q[k][1, ..., 1:32:3]) for k in range(3))
 
 
 def test_inv32_matches_header_convention():

@@ -174,6 +174,29 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(small):
         cc.point_add(group, p, tuple(t.to("meta") for t in q))
 
 
+@pytest.mark.parametrize("name", ["point_add", "point_double"])
+@pytest.mark.parametrize("group", ["G1", "G2"])
+def test_the_width_rule_picks_the_design_by_lanes(name, group):
+    """The team below the measured crossover, the one-thread design from it
+    on: the MSM's 2^20 lanes above it, curve.mul's 8192 and a batch of one
+    below.  forced_design holds one design for the while, leaves the CPU's
+    plain version as it is, and refuses an unknown design."""
+    cut = cc.THREAD_FROM_LANES[name]
+    assert 8192 < cut <= 1 << 20
+    assert cc.design_for(name, cut - 1) == cc.design_for(name, 1) == "team"
+    assert cc.design_for(name, cut) == cc.design_for(name, 1 << 20) == "thread"
+    assert set(cc.DESIGNS) == {"team", "thread"}
+    p = curve.one(curve.g1_spec() if group == "G1" else curve.g2_spec(), (2,), device="cpu")
+    args = [p] * (2 if name == "point_add" else 1)
+    with cc.forced_design("thread"):
+        assert cc.design_for(name, 1) == "thread"
+        got = getattr(cc, name)(group, *args)
+    assert cc.design_for(name, 1) == "team"
+    assert all(torch.equal(g, w) for g, w in zip(got, getattr(cc, name + "_plain")(group, *args)))
+    with pytest.raises(ValueError), cc.forced_design("warp"):
+        getattr(cc, name)(group, *args)
+
+
 def test_every_kernel_has_a_count_and_a_plain_version():
     assert len(build.KERNELS) == 19 and {"point_add", "point_double"} <= set(build.COUNTS)
     assert build.ENTRIES["point_add"][0] == build.ENTRIES["point_double"][0] == "kernels_curve"

@@ -1,14 +1,15 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
 // fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
 // fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
-// g2_step_team.cuh, miller_step_team.cuh, curve.cuh are plain C++ when no
-// CUDA compiler is at work).
+// g2_step_team.cuh, miller_step_team.cuh, curve.cuh, curve_team.cuh are plain
+// C++ when no CUDA compiler is at work).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
 #include <string.h>
 
 #include "curve.cuh"
+#include "curve_team.cuh"
 #include "fq12_cyclo_team.cuh"
 #include "fq_group.cuh"
 #include "fq12_mul024_team.cuh"
@@ -454,5 +455,39 @@ extern "C" int host_curve(int add, int fq2, const int32_t* const* in, int32_t* c
     curve_run<Fq2>(add, in, out, rows, B, m);
   else
     curve_run<Fq>(add, in, out, rows, B, m);
+  return 0;
+}
+
+// kernels_curve.cu's teams (curve_team.cuh) on team_run: point_add (add = 1)
+// or point_double with the one-thread kernels' arguments, over Fq (fq2 = 0)
+// or Fq2; the warps of each phase in order or, with `reverse`, last to
+// first, the state poisoned at every block.
+template <class F, bool kAdd>
+static void curve_team_run(const int32_t* const* in, int32_t* const* out, long long rows, long long B, const Mod& m,
+                           bool reverse) {
+  CurveTeam<F, kAdd> team;
+  for (int k = 0; k < CurveTeam<F, kAdd>::kInputs; k++) team.in[k] = in[k];
+  for (int k = 0; k < 3; k++) team.out[k] = out[k];
+  team_run(team, rows, B, m, reverse, [](int, typename CurveTeam<F, kAdd>::Shared&) {});
+}
+
+template <class F>
+static void curve_team_law(int add, const int32_t* const* in, int32_t* const* out, long long rows, long long B,
+                           const Mod& m, bool reverse) {
+  if (add)
+    curve_team_run<F, true>(in, out, rows, B, m, reverse);
+  else
+    curve_team_run<F, false>(in, out, rows, B, m, reverse);
+}
+
+extern "C" int host_curve_team(int add, int fq2, int reverse, const int32_t* const* in, int32_t* const* out,
+                               long long rows, long long B, const uint32_t* mod, uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  if (fq2)
+    curve_team_law<Fq2>(add, in, out, rows, B, m, reverse);
+  else
+    curve_team_law<Fq>(add, in, out, rows, B, m, reverse);
   return 0;
 }

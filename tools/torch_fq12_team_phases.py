@@ -51,6 +51,11 @@ stores, the block's cycles and µs, the SM clock in the run, the most blocks
 a multiprocessor ran at once, and the limbs' equality with the package's
 kernel (both outputs).
 
+--kernel point_add|point_double: the same for the curve kernels' team block
+(team_block_on in csrc/team.cuh with CurveTeam of csrc/curve_team.cuh, the
+body of k_curve_team, under the same __launch_bounds__), for G1 and for G2,
+on random coordinates: for each batch and team one line like miller_step's.
+
 --kernel miller_step: the same for the Miller step's team block (team_block
 in csrc/team.cuh with MillerStepTeam of csrc/miller_step_team.cuh, the body
 of k_miller_step, under the same __launch_bounds__), both instances: for
@@ -62,7 +67,8 @@ at once, and the limbs' equality with the package's kernel.
 
 Run from the repository root on a machine with a GPU and nvcc:
     python3 tools/torch_fq12_team_phases.py [B ...]
-        [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain|double_step|madd_step|miller_step]
+        [--kernel fq12_mul|fq12_mul024_pre|fq12_sq|fq12_cyclo_sq_chain|double_step|madd_step|miller_step|
+                  point_add|point_double]
         [--n N] [--flag F ...]    (default: 32 8192, fq12_mul, n = 5; --flag adds nvcc flags,
         e.g. --flag=-DBN_MILLER_SQ_MIN_BLOCKS=1)
 """
@@ -91,6 +97,7 @@ SOURCE = r"""
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
 #include "miller_step_team.cuh"
+#include "curve_team.cuh"
 
 // Each team's member from three operand pointers, with its products (the
 // package's member) or with an addition of its two operands in their place.
@@ -307,9 +314,54 @@ extern "C" int bn_miller_phases(int square, const void* f, const void* coeff, co
         (long long*)clocks, (long long*)info);
   return (int)cudaGetLastError();
 }
+
+// a curve team's block (team_block_on with CurveTeam of csrc/curve_team.cuh,
+// the body of k_curve_team, under the same __launch_bounds__ and on dynamic
+// shared memory), with the chain's marks: 2 kPhases a warp
+template <class Team>
+__global__ void __launch_bounds__(Team::kWarps * BN_TEAM_LANES, 2)
+k_curve_phases(const Team team, int64_t n, int64_t B, Mod m, long long* __restrict__ clocks,
+               long long* __restrict__ info) {
+  extern __shared__ __align__(16) unsigned char curve_state[];
+  constexpr int kMarks = 2 * Team::kPhases;
+  RowClockMarks marks{clocks + ((int64_t)blockIdx.x * Team::kWarps + threadIdx.x / BN_TEAM_LANES) * kMarks,
+                      info + (int64_t)blockIdx.x * 3, kMarks - 1};
+  team_block_on(team, *reinterpret_cast<typename Team::Shared*>(curve_state), n, B, m, marks);
+}
+
+template <class Team>
+static int curve_phases_run(const void* const* in, void* const* out, long long n, long long B, const Mod& m,
+                            void* clocks, void* info, void* stream, int* shape) {
+  shape[0] = Team::kWarps;
+  shape[1] = Team::kPhases;
+  if (in == nullptr) return 0;
+  Team team;
+  for (int k = 0; k < Team::kInputs; k++) team.in[k] = (const int32_t*)in[k];
+  for (int k = 0; k < 3; k++) team.out[k] = (int32_t*)out[k];
+  const int bytes = (int)sizeof(typename Team::Shared);
+  cudaError_t rc = cudaFuncSetAttribute(k_curve_phases<Team>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  k_curve_phases<Team><<<bn_grid(n, BN_TEAM_LANES), Team::kWarps * BN_TEAM_LANES, bytes, (cudaStream_t)stream>>>(
+      team, n, B, m, (long long*)clocks, (long long*)info);
+  return (int)cudaGetLastError();
+}
+
+// add = 1: point_add, 0: point_double; fq2 = 1: G2.  shape gets the team's
+// warps and phases; with in = nullptr nothing is launched.
+extern "C" int bn_curve_phases(int add, int fq2, const void* const* in, void* const* out, long long rows,
+                               long long B, const uint32_t* mod, uint32_t inv, void* clocks, void* info, void* stream,
+                               int* shape) {
+  const Mod m = bn_make_mod(mod, inv);
+  const long long n = rows * B;
+#define BN_CURVE_PHASES(F, ADD) curve_phases_run<CurveTeam<F, ADD>>(in, out, n, B, m, clocks, info, stream, shape)
+  if (!fq2) return add ? BN_CURVE_PHASES(Fq, true) : BN_CURVE_PHASES(Fq, false);
+  return add ? BN_CURVE_PHASES(Fq2, true) : BN_CURVE_PHASES(Fq2, false);
+#undef BN_CURVE_PHASES
+}
 """
 LANES = 32
 CHAIN_MEMBERS = 6
+CURVE = ("point_add", "point_double")
 STEPS = ("double_step", "madd_step")
 # the teams of fq12_team_block: kernel -> (bn_phases' kernel index, members,
 # operand structs: an Fq12 element, an Fq2 (ell0), two Fq2 (scaled))
@@ -330,7 +382,7 @@ def main():
         sys.exit("needs a CUDA device")
     ap = argparse.ArgumentParser()
     ap.add_argument("batches", type=int, nargs="*", default=[32, 8192])
-    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"] + list(STEPS) + ["miller_step"],
+    ap.add_argument("--kernel", choices=list(TEAMS) + ["fq12_cyclo_sq_chain"] + list(STEPS) + ["miller_step"] + list(CURVE),
                     default="fq12_mul")
     ap.add_argument("--n", type=int, default=5, help="squarings of the chain")
     ap.add_argument("--flag", action="append", default=[], help="an nvcc flag added to the package's (repeatable)")
@@ -353,6 +405,8 @@ def main():
         step_phases(lib, args.kernel, args.batches, card)
     elif args.kernel == "miller_step":
         miller_phases(lib, args.batches, card)
+    elif args.kernel in CURVE:
+        curve_phases(lib, args.kernel, args.batches, card)
     else:
         team_phases(lib, args.kernel, args.batches, card)
 
@@ -553,6 +607,65 @@ def miller_phases(lib, batches, card):
                 "multiprocessors_used": int(len(np.unique(nfo[:, 0]))),
                 "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
                 "sm_clock_after": sm_clock, "equals_miller_step": same, "card": card,
+            }), flush=True)
+
+
+def curve_phases(lib, kernel, batches, card):
+    """The curve team's block of `kernel` for G1 and G2 on random coordinates
+    (generic lanes: the addition's doubling levels find no flag and do
+    nothing)."""
+    from bn_tpu_torch.ops import curve_cuda as cc
+
+    fn = lib.bn_curve_phases
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_longlong] * 2 + [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32] + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    words, inv32 = mc._mod_args(P.Q)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    add = kernel == "point_add"
+    med = lambda x: [float(v) for v in np.median(x, axis=0)]  # noqa: E731  over blocks
+    for batch in batches:
+        for group in ("G1", "G2"):
+            st = cc.STRUCTS[group]
+            ins = random_operands(rng, [st] * (6 if add else 3), batch, dev)
+            outs = [torch.empty_like(ins[0]) for _ in range(3)]
+            in_c = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+            out_c = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in outs))
+            shape = (ctypes.c_int * 2)()
+            fn(int(add), int(group == "G2"), None, None, 1, batch, words, inv32, None, None, stream, shape)
+            warps, phases = shape
+            blocks = (batch + LANES - 1) // LANES
+            clocks = torch.zeros((blocks, warps, 2 * phases), dtype=torch.int64, device=dev)
+            info = torch.zeros((blocks, 3), dtype=torch.int64, device=dev)  # multiprocessor, start ns, end ns
+            ms = {True: []}
+
+            def launch(_):
+                return fn(int(add), int(group == "G2"), in_c, out_c, 1, batch, words, inv32, clocks.data_ptr(),
+                          info.data_ptr(), stream, shape)
+
+            c = timed_runs(launch, clocks, ms, True)  # (blocks, warps, 2 phases)
+            nfo = info.cpu().numpy().copy()
+            with cc.forced_design("team"):
+                want = getattr(cc, kernel)(group, *([tuple(ins[:3]), tuple(ins[3:])] if add else [tuple(ins)]))
+            same = all(torch.equal(g, w) for g, w in zip(outs, want))
+            sm_clock = smi("clocks.sm")
+            work = np.stack([c[:, :, 1 + 2 * p] - c[:, :, 2 * p] for p in range(phases)], axis=1)
+            print(json.dumps({
+                "kernel": kernel, "group": group, "batch": batch, "warps": warps,
+                "phases": phases, "ms": ms[True], "blocks": blocks,
+                "phase_cycles_slowest_warp": med(work.max(axis=2)),
+                "phase_cycles_mean_warp": med(work.mean(axis=2)),
+                "barrier_wait_cycles": med(np.stack([c[:, :, 2 + 2 * p].max(axis=1) - c[:, :, 1 + 2 * p].max(axis=1)
+                                                     for p in range(phases - 1)], axis=1)),
+                "block_cycles": float(np.median(c[:, :, -1].max(axis=1) - c[:, :, 0].min(axis=1))),
+                "block_us": float(np.median(nfo[:, 2] - nfo[:, 1])) / 1e3,
+                "sm_clock_ghz_in_run": float(np.median((c[:, 0, -1] - c[:, 0, 0]) / (nfo[:, 2] - nfo[:, 1]))),
+                "kernel_span_us": float(nfo[:, 2].max() - nfo[:, 1].min()) / 1e3,
+                "multiprocessors_used": int(len(np.unique(nfo[:, 0]))),
+                "most_blocks_at_once_per_multiprocessor": blocks_at_once(nfo),
+                "sm_clock_after": sm_clock, "equals_the_package_team": same, "card": card,
             }), flush=True)
 
 

@@ -21,7 +21,15 @@ MUL024_LINE_THREAD_SOURCE), also with registers for one block; both
 instances of miller_step (13 warps, csrc/miller_step_team.cuh;
 MILLER_THREAD_SOURCE, the labels "miller_step square" and "miller_step no
 square"), also with registers for one block in both instances and for two
-in both.
+in both; point_add and point_double for G1 and G2 (the labels "point_add
+G1", ...), the team of csrc/curve_team.cuh against the one-thread design,
+both in the package's library and picked by the C entry's design argument,
+and for G2 also the team with each Fq2 product's Karatsuba products on
+three warps in place of one whole Fq2 product a warp (KARATSUBA_TEAM_SOURCE);
+time them
+at the widths of ops/curve_cuda.py's crossover with --graph --batch 1 8192
+8448 10240 12288 16384 32768 65536 262144 1048576 (1: the MSM's Horner
+doublings; 8448: one wave of the team's blocks on 132 multiprocessors).
 For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
 against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
 SOURCE_FLAGS holds the choices made from these numbers.
@@ -29,7 +37,8 @@ SOURCE_FLAGS holds the choices made from these numbers.
 For each kernel and each variant it prints one JSON line:
 nvcc's build time, what `ptxas -v` reports for the source's entries (registers,
 stack, spills, static shared memory), the kernel's time at each batch (CUDA
-events, 50 launches after a warm-up, variants in turns: a, b, b, a, or a, b, c,
+events, 50 launches after a warm-up, or with --graph one replay of the 50
+captured as a CUDA graph, variants in turns: a, b, b, a, or a, b, c,
 c, b, a; with --turns N that sequence N times), and whether every variant
 returns the first one's limbs.  --parent DIR adds to every picked kernel
 the build "parent": the same source file and flags from the checkout DIR
@@ -49,11 +58,18 @@ configuration.  Each turn, after a warm-up: CUDA events around 3 eager calls
 (the host's pace included), the device-busy time of one call under
 torch.profiler (the sum of its kernels' times), and CUDA events around 3
 replays of one call captured as a CUDA graph (the card's pace: no Python
-between launches); and whether every result equals the team's.  Run from the repository root on a
-machine with a GPU and nvcc:
+between launches); and whether every result equals the team's.
+With --ladder it times curve.mul of G1 and of G2 at B = 8192 with every
+curve launch of the team design, then of the one-thread design: each
+captured once as a CUDA graph and replayed in turns (team, thread, thread,
+team, three times: median of 6), and the curve kernels' device time in an
+eager call under torch.profiler; one JSON line per group and design.
+--sass also gives each function's instructions.  Run from the repository
+root on a machine with a GPU and nvcc:
     python3 tools/torch_kernel_variants.py [kernel ...] [--batch B ...] [--pairing]
-        [--turns N] [--parent DIR] [--only VAR ...] [--together]
-where the optional labels (e.g. fq12_mul) pick kernels, all by default, and
+        [--turns N] [--parent DIR] [--only VAR ...] [--together] [--ladder] [--sass]
+where the optional labels (e.g. fq12_mul) pick kernels, all by default
+(none with --ladder alone), and
 --batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
 32 is one block of a team alone on the card; 132 * 32 = 4224 one block on
 each multiprocessor, 8448 two; for pow_fixed, 16384 is the two inversions of
@@ -81,6 +97,7 @@ from bn_tpu_torch import ate, curve  # noqa: E402
 from bn_tpu_torch import params as P  # noqa: E402
 from bn_tpu_torch.fields import fp  # noqa: E402
 from bn_tpu_torch.ops import backend, build  # noqa: E402
+from bn_tpu_torch.ops import curve_cuda as cc  # noqa: E402
 from bn_tpu_torch.ops import mont_cuda as mc  # noqa: E402
 from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
@@ -135,7 +152,18 @@ OWN_VARIANTS = {
         "team_1_block": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MILLER_SQ_MIN_BLOCKS=1", "-DBN_MILLER_MIN_BLOCKS=1"],
         "team_2_blocks": ["-DBN_MUL_OUT_OF_LINE", "-DBN_MILLER_SQ_MIN_BLOCKS=2", "-DBN_MILLER_MIN_BLOCKS=2"],
     } for label in ("miller_step square", "miller_step no square")},
+    # the curve kernels' two designs are one library: the C entry's design
+    # argument picks (CURVE_DESIGN_ARG); over Fq2 also the team with each Fq2
+    # product's Karatsuba products on warps of their own (KARATSUBA_TEAM_SOURCE)
+    **{f"{name} {group}": {
+        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "thread": ["-DBN_MUL_OUT_OF_LINE"],
+        **({"team_fq_a_warp": ["-DBN_MUL_OUT_OF_LINE"]} if group == "G2" else {}),
+    } for name in ("point_add", "point_double") for group in ("G1", "G2")},
 }
+# the design argument each variant of a curve label passes (csrc/kernels_curve.cu)
+CURVE_DESIGN_ARG = {"team": 1, "thread": 0, "team_fq_a_warp": 1}
+CURVE_LABELS = tuple(f"{n} {g}" for n in ("point_add", "point_double") for g in ("G1", "G2"))
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
 // fq12_mul as one thread per element, 64 threads a block: the design of
@@ -541,6 +569,236 @@ extern "C" int bn_miller_step(const void* f, const void* coeff, const void* px, 
   return (int)cudaGetLastError();
 }
 """
+KARATSUBA_TEAM_SOURCE = r"""
+// The G2 teams of csrc/curve_team.cuh with each Fq2 product's Karatsuba
+// products on warps of their own: the 3 Montgomery products of fq2_mul's
+// Karatsuba form, or the 2 of fq2_sq's complex squaring, each into an Fq
+// entry of its own, joined again by every reader (12 warps for the
+// addition, L1's four Fq2 products of 3; 7 for the doubling, D0's
+// 2 + 2 + 3).  The unit the issue of the redesign proposed for G2, kept as
+// the baseline of the package's one whole Fq2 product a warp.  The
+// package's kernels_curve.cu supplies the kernel, the launch and the
+// one-thread design (its C entries renamed here); design 1 of the entries
+// below launches this team.
+#define bn_point_add bn_point_add_package
+#define bn_point_double bn_point_double_package
+#define bn_point_launch bn_point_launch_package
+#include "kernels_curve.cu"
+#undef bn_point_add
+#undef bn_point_double
+#undef bn_point_launch
+
+BN_CONSTEXPR int k_parts(bool sq) { return sq ? 2 : 3; }
+
+// Part j of the Fq2 product a b (a square has b = a).
+BN_DEV Fq k_part(bool sq, int j, const Fq2& a, const Fq2& b, const Mod& m) {
+  if (sq) return j == 0 ? fq_mont_mul(fq_add(a.c0, a.c1, m), fq_sub(a.c0, a.c1, m), m) : fq_mont_mul(a.c0, a.c1, m);
+  if (j == 0) return fq_mont_mul(a.c0, b.c0, m);
+  if (j == 1) return fq_mont_mul(a.c1, b.c1, m);
+  return fq_mont_mul(fq_add(a.c0, a.c1, m), fq_add(b.c0, b.c1, m), m);
+}
+
+// The product joined from its parts at entry e.
+BN_DEV Fq2 k_join(bool sq, const uint32_t* s, int e, const Mod& m) {
+  const Fq p0 = fq_tab_load(s, BN_TEAM_LANES, e), p1 = fq_tab_load(s, BN_TEAM_LANES, e + 1);
+  Fq2 r;
+  if (sq) {
+    r.c0 = p0;
+    r.c1 = fq_add(p1, p1, m);
+  } else {
+    r.c0 = fq_sub(p0, p1, m);
+    r.c1 = fq_sub(fq_sub(fq_tab_load(s, BN_TEAM_LANES, e + 2), p0, m), p1, m);
+  }
+  return r;
+}
+
+BN_CONSTEXPR int k_level_parts(int gl) {
+  int n = 0;
+  for (int k = curve_level_start(gl); k < curve_level_start(gl + 1); k++) n += k_parts(curve_is_sq(k));
+  return n;
+}
+
+template <bool kAdd>
+BN_CONSTEXPR int k_team_warps() {
+  int w = 0;
+  for (int gl = kAdd ? 0 : BN_CURVE_DOUBLE_LEVEL; gl < 8; gl++) w = k_level_parts(gl) > w ? k_level_parts(gl) : w;
+  return w;
+}
+
+// The first state entry of product k: the inputs' coefficients first, then
+// the parts of the team's products in order.
+template <bool kAdd>
+BN_CONSTEXPR int k_entry(int k) {
+  int e = (kAdd ? 6 : 3) * 2;
+  for (int j = kAdd ? C_Z1S : C_A; j < k; j++) e += k_parts(curve_is_sq(j));
+  return e;
+}
+
+template <bool kAdd>
+struct KaratsubaTeam {
+  using F = Fq2;
+  static constexpr int W = 2;
+  static constexpr int kInputs = kAdd ? 6 : 3;
+  static constexpr int kFirstLevel = kAdd ? 0 : BN_CURVE_DOUBLE_LEVEL;
+  static constexpr int kLevels = 8 - kFirstLevel;
+  static constexpr int kWarps = k_team_warps<kAdd>();
+  static constexpr int kPhases = kLevels + 1;
+  static constexpr int kEntries = k_entry<kAdd>(C_PRODUCTS);
+  static constexpr int kFlagWarp = k_level_parts(3);  // the first warp idle at L3 (and L4)
+  struct Shared {
+    uint32_t state[kEntries][BN_NW][BN_TEAM_LANES];
+    uint32_t flag[BN_TEAM_LANES];
+    uint32_t any;
+  };
+  const int32_t* in[kInputs];
+  int32_t* out[3];
+
+  static BN_DEV F input(const uint32_t* s, int k) { return CurveFromState<F>{s}(k); }
+  static BN_DEV F val(const uint32_t* s, int k, const Mod& m) { return k_join(curve_is_sq(k), s, k_entry<kAdd>(k), m); }
+  static BN_DEV F h_of(const uint32_t* s, const Mod& m) { return ct_sub(val(s, C_U2, m), val(s, C_U1, m), m); }
+  static BN_DEV F r_of(const uint32_t* s, const Mod& m) {
+    return ct_dbl(ct_sub(val(s, C_S2, m), val(s, C_S1, m), m), m);
+  }
+  static BN_DEV F add_x3(const uint32_t* s, const Mod& m) {
+    return ct_sub(ct_sub(val(s, C_RR, m), val(s, C_J, m), m), ct_dbl(val(s, C_V, m), m), m);
+  }
+  static BN_DEV F dbl_e(const uint32_t* s, const Mod& m) {
+    const F a = val(s, C_A, m);
+    return ct_add(ct_dbl(a, m), a, m);
+  }
+  static BN_DEV F dbl_d(const uint32_t* s, const Mod& m) {
+    return ct_dbl(ct_sub(ct_sub(val(s, C_XB2, m), val(s, C_A, m), m), val(s, C_C, m), m), m);
+  }
+  static BN_DEV F dbl_x3(const uint32_t* s, const Mod& m) {
+    return ct_sub(val(s, C_EE, m), ct_dbl(dbl_d(s, m), m), m);
+  }
+
+  template <class In>
+  static BN_DEV void operands(int k, const In& in, const uint32_t* s, F& a, F& b, const Mod& m) {
+    switch (k) {
+      case C_Z1S: a = in(2); b = a; break;
+      case C_Z2S: a = in(5); b = a; break;
+      case C_ZZ: a = ct_add(in(2), in(5), m); b = a; break;
+      case C_U1: a = in(0); b = val(s, C_Z2S, m); break;
+      case C_U2: a = in(3); b = val(s, C_Z1S, m); break;
+      case C_Z1C: a = in(2); b = val(s, C_Z1S, m); break;
+      case C_Z2C: a = in(5); b = val(s, C_Z2S, m); break;
+      case C_S1: a = in(1); b = val(s, C_Z2C, m); break;
+      case C_S2: a = in(4); b = val(s, C_Z1C, m); break;
+      case C_I: a = ct_dbl(h_of(s, m), m); b = a; break;
+      case C_Z3: a = ct_sub(ct_sub(val(s, C_ZZ, m), val(s, C_Z1S, m), m), val(s, C_Z2S, m), m); b = h_of(s, m); break;
+      case C_J: a = h_of(s, m); b = val(s, C_I, m); break;
+      case C_V: a = val(s, C_U1, m); b = val(s, C_I, m); break;
+      case C_RR: a = r_of(s, m); b = a; break;
+      case C_S1J: a = val(s, C_S1, m); b = val(s, C_J, m); break;
+      case C_RV: a = r_of(s, m); b = ct_sub(val(s, C_V, m), add_x3(s, m), m); break;
+      case C_A: a = in(0); b = a; break;
+      case C_B: a = in(1); b = a; break;
+      case C_YZ: a = in(1); b = in(2); break;
+      case C_C: a = val(s, C_B, m); b = a; break;
+      case C_XB2: a = ct_add(in(0), val(s, C_B, m), m); b = a; break;
+      case C_EE: a = dbl_e(s, m); b = a; break;
+      default: a = dbl_e(s, m); b = ct_sub(dbl_d(s, m), dbl_x3(s, m), m); break;  // C_ED
+    }
+  }
+
+  static BN_DEV F chord_out(int j, const uint32_t* s, const Mod& m) {
+    if (j == 0) return add_x3(s, m);
+    if (j == 1) return ct_sub(val(s, C_RV, m), ct_dbl(val(s, C_S1J, m), m), m);
+    return val(s, C_Z3, m);
+  }
+  static BN_DEV F double_out(int j, const uint32_t* s, const Mod& m) {
+    if (j == 0) return dbl_x3(s, m);
+    if (j == 1) return ct_sub(val(s, C_ED, m), ct_dbl(ct_dbl(ct_dbl(val(s, C_C, m), m), m), m), m);
+    return ct_dbl(val(s, C_YZ, m), m);
+  }
+
+  template <class In>
+  BN_DEV void level(int gl, const TeamLane& t, const In& from, uint32_t* s, Shared& sh, const Mod& m) const {
+    if (kAdd && gl >= BN_CURVE_DOUBLE_LEVEL && !sh.any) return;
+    int first = 0;
+#pragma unroll
+    for (int k = curve_level_start(gl); k < curve_level_start(gl + 1); k++) {
+      const int parts = k_parts(curve_is_sq(k));
+      if (t.w >= first && t.w < first + parts) {
+        F a, b;
+        operands(k, from, s, a, b, m);
+        fq_tab_store(s, BN_TEAM_LANES, k_entry<kAdd>(k) + t.w - first, k_part(curve_is_sq(k), t.w - first, a, b, m));
+      }
+      first += parts;
+    }
+    if (kAdd && gl == 3 && t.w == kFlagWarp) {
+      const bool same = f_eq(val(s, C_U1, m), val(s, C_U2, m)) & f_eq(val(s, C_S1, m), val(s, C_S2, m));
+      sh.flag[t.lane] = same & !f_is_zero(input(s, 2)) & !f_is_zero(input(s, 5));
+    }
+    if (kAdd && gl == 4 && t.w == kFlagWarp) {
+      uint32_t any = 0;
+#pragma unroll
+      for (int l = 0; l < BN_TEAM_LANES; l++) any |= sh.flag[l];
+      sh.any = any;
+    }
+  }
+
+  BN_DEV void phase(int p, const TeamLane& t, int64_t B, Shared& sh, const Mod& m) const {
+    uint32_t* s = &sh.state[0][0][0] + t.lane;
+    if (p > 0 && p < kLevels) {
+      level(kFirstLevel + p, t, CurveFromState<F>{s}, s, sh, m);
+      return;
+    }
+    const int64_t off = curve_offset(t.e, B, W);
+    if (p == 0) {
+#pragma unroll
+      for (int i = 0; i < (kInputs * W + kWarps - 1) / kWarps; i++) {
+        const int c = t.w + i * kWarps;
+        if (c < kInputs * W)
+          fq_tab_store(s, BN_TEAM_LANES, c, fq_load(in[c / W] + off + (int64_t)(c % W) * BN_NLIMB * B, B));
+      }
+      level(kFirstLevel, t, CurveFromMemory<F>{in, off, B}, s, sh, m);
+    } else if (t.live) {
+      for (int c = t.w; c < 3 * W; c += kWarps) {
+        const int j = c / W;
+        F v;
+        if (!kAdd) v = double_out(j, s, m);
+        else if (f_is_zero(input(s, 5))) v = input(s, j);
+        else if (f_is_zero(input(s, 2))) v = input(s, 3 + j);
+        else if (sh.flag[t.lane]) v = double_out(j, s, m);
+        else v = chord_out(j, s, m);
+        fq_store(out[j] + off + (int64_t)(c % W) * BN_NLIMB * B, B, curve_coeff(v, c % W));
+      }
+    }
+  }
+};
+
+template <bool kAdd>
+static int karatsuba_team(const void* const* in, void* const* out, long long rows, long long B, const Mod& m,
+                          cudaStream_t s) {
+  KaratsubaTeam<kAdd> team;
+  for (int k = 0; k < KaratsubaTeam<kAdd>::kInputs; k++) team.in[k] = (const int32_t*)in[k];
+  for (int k = 0; k < 3; k++) team.out[k] = (int32_t*)out[k];
+  return curve_team_launch(team, rows * B, B, m, s);
+}
+
+extern "C" {
+int bn_point_add(const void* x1, const void* y1, const void* z1, const void* x2, const void* y2,
+                 const void* z2, void* ox, void* oy, void* oz, long long rows, long long B, int fq2,
+                 int design, const uint32_t* mod, uint32_t inv, void* stream) {
+  if (!fq2 || !design)
+    return bn_point_add_package(x1, y1, z1, x2, y2, z2, ox, oy, oz, rows, B, fq2, design, mod, inv, stream);
+  const void* in[6] = {x1, y1, z1, x2, y2, z2};
+  void* out[3] = {ox, oy, oz};
+  return karatsuba_team<true>(in, out, rows, B, bn_make_mod(mod, inv), (cudaStream_t)stream);
+}
+
+int bn_point_double(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz,
+                    long long rows, long long B, int fq2, int design, const uint32_t* mod, uint32_t inv,
+                    void* stream) {
+  if (!fq2 || !design) return bn_point_double_package(x, y, z, ox, oy, oz, rows, B, fq2, design, mod, inv, stream);
+  const void* in[3] = {x, y, z};
+  void* out[3] = {ox, oy, oz};
+  return karatsuba_team<false>(in, out, rows, B, bn_make_mod(mod, inv), (cudaStream_t)stream);
+}
+}  // extern "C"
+"""
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
     ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
@@ -555,6 +813,8 @@ OWN_SOURCES = {
     ("fq12_mul024", "thread"): MUL024_LINE_THREAD_SOURCE,
     ("miller_step square", "thread"): MILLER_THREAD_SOURCE,
     ("miller_step no square", "thread"): MILLER_THREAD_SOURCE,
+    ("point_add G2", "team_fq_a_warp"): KARATSUBA_TEAM_SOURCE,
+    ("point_double G2", "team_fq_a_warp"): KARATSUBA_TEAM_SOURCE,
 }
 PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
 NOT_IN_PAIRING = ("fq12_mul024",)  # kernels pairing_batch never launches: --pairing does not swap them
@@ -594,7 +854,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernels", nargs="*", default=list(KERNELS))
+    ap.add_argument("kernels", nargs="*", default=[])
     ap.add_argument("--batch", type=int, nargs="+", default=[B])
     ap.add_argument("--pairing", action="store_true",
                     help="time pairing_batch with each picked team kernel's team and one-thread builds swapped in")
@@ -605,8 +865,12 @@ def main():
     ap.add_argument("--only", nargs="+", help="the variants to build and time, of those a kernel has")
     ap.add_argument("--together", action="store_true",
                     help="with --pairing, swap every picked kernel at once, in place of one at a time and in pairs")
+    ap.add_argument("--graph", action="store_true",
+                    help="time each kernel's 50 launches as a replayed CUDA graph, not as 50 launches from Python")
+    ap.add_argument("--ladder", action="store_true",
+                    help="time a G1 and a G2 curve.mul at B = 8192 as replayed CUDA graphs, team against one-thread design")
     args = ap.parse_args()
-    picked = args.kernels
+    picked = args.kernels or ([] if args.ladder else list(KERNELS))
     unknown = [k for k in picked if k not in KERNELS]
     if unknown:
         sys.exit(f"unknown kernels {unknown}; known: {list(KERNELS)}")
@@ -614,35 +878,44 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
 
     def variants_of(label):
-        """variant -> (nvcc flags, source path or None for the package's)"""
+        """variant -> (nvcc flags, source path or None for the package's).
+        A curve label has no parent variant: the parent's C entries take no
+        design argument."""
         stem = build.ENTRIES[KERNELS[label][0]][0]
         out = {var: (flags, None) for var, flags in OWN_VARIANTS.get(label, VARIANTS).items()}
-        if args.parent is not None:
+        if args.parent is not None and label not in CURVE_LABELS:
             out["parent"] = (build.SOURCE_FLAGS.get(stem, []), args.parent / "bn_tpu_torch" / "csrc" / f"{stem}.cu")
         return {v: x for v, x in out.items() if args.only is None or v in args.only}
 
-    # start every compile at once (one per source and variant), then wait;
-    # time each by its own clock
-    procs = {}
+    # start every compile at once (one per source and distinct flags), then
+    # wait; time each by its own clock.  Variants that differ only in their
+    # arguments (the curve kernels' designs) share a build.
+    procs, build_of = {}, {}
     for label in picked:
         stem = build.ENTRIES[KERNELS[label][0]][0]
         for var, (flags, src) in variants_of(label).items():
-            if (stem, var) not in procs:
+            if (label, var) in OWN_SOURCES:
+                key = (stem, var)
+            else:
+                key = (stem, tuple(flags), str(src))
+            build_of[stem, var] = key
+            if key not in procs:
                 so = out_dir / f"lib{stem}.{var}.so"
                 if (label, var) in OWN_SOURCES:
                     src = out_dir / f"{stem}.{var}.cu"
                     src.write_text(OWN_SOURCES[label, var])
-                procs[stem, var] = (build.compile_start(stem, so, flags, src), so, time.perf_counter())
-    libs, logs, secs = {}, {}, {}
+                procs[key] = (build.compile_start(stem, so, flags, src), so, time.perf_counter())
+    libs, logs, secs, built = {}, {}, {}, {}
     for key, (proc, so, t0) in procs.items():
-        logs[key], _ = proc.communicate()
-        secs[key] = time.perf_counter() - t0  # upper bound: includes waiting on earlier ones
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"nvcc failed for {key}:\n{logs[key]}")
-        libs[key] = ctypes.CDLL(str(so))
+            sys.exit(f"nvcc failed for {key}:\n{log}")
+        built[key] = (ctypes.CDLL(str(so)), log, time.perf_counter() - t0)  # seconds: upper bound, includes waiting
+    for stem_var, key in build_of.items():
+        libs[stem_var], logs[stem_var], secs[stem_var] = built[key]
     if args.sass:
-        for (stem, var), (_, so, _) in procs.items():
-            print(json.dumps({"sass": stem, "variant": var, **sass_counts(so), "card": card}), flush=True)
+        for (stem, var), key in build_of.items():
+            print(json.dumps({"sass": stem, "variant": var, **sass_counts(procs[key][1]), "card": card}), flush=True)
 
     rng = np.random.default_rng(7)
     pool = torch.from_numpy(
@@ -668,14 +941,26 @@ def main():
             fn.argtypes = list(build.ENTRIES[name][1]) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             o = torch.stack([torch.empty_like(ins[0]) for _ in range(n_out)])
-            args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, batch, *own, words, inv32, stream]
-            assert fn(*args) == 0
+            design = (CURVE_DESIGN_ARG[var],) if label in CURVE_LABELS else ()
+            call_args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, batch, *own, *design, words, inv32]
+            assert fn(*call_args, stream) == 0
             torch.cuda.synchronize()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(50):
-                fn(*args)
-            t1.record()
+            if args.graph:  # the 50 launches captured once and replayed: no host time between them
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    for _ in range(50):
+                        assert fn(*call_args, torch.cuda.current_stream().cuda_stream) == 0
+                graph.replay()
+                torch.cuda.synchronize()
+                t0.record()
+                graph.replay()
+                t1.record()
+            else:
+                t0.record()
+                for _ in range(50):
+                    fn(*call_args, stream)
+                t1.record()
             torch.cuda.synchronize()
             outs[var] = o
             ms[var].append(t0.elapsed_time(t1) / 50)
@@ -707,6 +992,8 @@ def main():
             time_pairing(kernels, {var: {k: libs[build.ENTRIES[k][0], var] for k in kernels}
                                    for var in builds if all((build.ENTRIES[k][0], var) in libs for k in kernels)},
                          card)
+    if args.ladder:
+        time_ladder(card)
 
 
 def sass_counts(so):
@@ -724,9 +1011,59 @@ def sass_counts(so):
         if target and int(target[1], 16) < addr:
             loops.append((addr - int(target[1], 16)) // 16 + 1)
     ops = [text.split()[1] if text.startswith("@") else text.split()[0] for _, text in ins]
+    # instructions of each function, __global__ or called, by its mangled name
+    functions = {}
+    for chunk in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]:
+        functions[chunk.split()[0]] = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+[^;]*;", chunk, re.M))
     return {"instructions": len(ins), "imad": sum(o.startswith("IMAD") for o in ops),
             "shfl": sum(o.startswith("SHFL") for o in ops), "vote": sum(o.startswith("VOTE") for o in ops),
-            "loop_instructions": loops}
+            "loop_instructions": loops, "function_instructions": functions}
+
+
+def time_ladder(card, turns=3):
+    """curve.mul of G1 and of G2 at B = 8192 (256 point_double and 256
+    point_add launches, the selects between them) with every curve launch
+    of the team design, then of the one-thread design: each captured once as
+    a CUDA graph and replayed in turns (team, thread, thread, team) `turns`
+    times, so 2 * turns replays each, median; the curve kernels' device time
+    in one eager call under torch.profiler, each design once a turn; and
+    whether the two give the same limbs."""
+    rng = np.random.default_rng(42)
+    for spec in (curve.g1_spec(), curve.g2_spec()):
+        k = fp.to_device(fp.FR, [int.from_bytes(rng.bytes(64), "big") % P.R_SCALAR for _ in range(B)])
+        base = curve.one(spec, (B,))
+        graphs, outs = {}, {}
+        ms = {d: [] for d in cc.DESIGNS}
+        busy = {d: [] for d in cc.DESIGNS}
+        for design in cc.DESIGNS:
+            with cc.forced_design(design):
+                curve.mul(spec, base, k)  # warm-up, outside the capture
+                torch.cuda.synchronize()
+                graphs[design] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[design]):
+                    outs[design] = curve.mul(spec, base, k)
+        for design in ("team", "thread", "thread", "team") * turns:
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graphs[design].replay()
+            t1.record()
+            torch.cuda.synchronize()
+            ms[design].append(t0.elapsed_time(t1))
+            if len(busy[design]) < turns:
+                with cc.forced_design(design), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    curve.mul(spec, base, k)
+                    torch.cuda.synchronize()
+                busy[design].append(sum(
+                    getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+                    for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and re.search(r"k_curve_team|k_point_(add|double)", ev.key)) / 1e3)
+        for design in cc.DESIGNS:
+            print(json.dumps({
+                "ladder": spec.name, "design": design, "batch": B, "ms_graph_replay": statistics.median(ms[design]),
+                "ms_graph_replay_runs": ms[design], "curve_kernels_device_ms_runs": busy[design],
+                "same_result": all(torch.equal(a, b) for a, b in zip(outs[design], outs["team"])), "card": card,
+            }), flush=True)
 
 
 def time_pairing(kernels, kernel_libs, card):
