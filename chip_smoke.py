@@ -13,7 +13,10 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     batch of 1000 with the edge values 0, 1, m-1 and the Montgomery one, for
     both moduli where the kernel takes one, and at the shape the main path
     gives it at B = 8192 — and holds each result against the kernel's plain
-    PyTorch version on the same inputs (`pow_fixed` also against Python's
+    PyTorch version on the same inputs (`mont_mul`, `mod_add`, `mod_sub`,
+    `mod_neg` for both moduli and `fq2_mul` also on edge_pairs(), whose
+    carries and borrows run through whole words, the first four against
+    Python's integers too; `pow_fixed` also against Python's
     pow, with the Fermat exponent and one with a zero digit inside; the
     squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
     `miller_step` in both instantiations, with and without the square;
@@ -103,6 +106,7 @@ non-zero exit code and no result line.
 
 import contextlib
 import ctypes
+import functools
 import json
 import math
 import re
@@ -182,6 +186,54 @@ PTXAS_NAMES_TEAM = {"point_add": "12k_curve_teamI9CurveTeamI2FqLb1EEE",
 PTXAS_NAMES_TEAM_G2 = {"point_add": "12k_curve_teamI9CurveTeamI3Fq2Lb1EEE",
                        "point_double": "12k_curve_teamI9CurveTeamI3Fq2Lb0EEE"}
 PTXAS_NAMES_NO_SQ = {"miller_step": "13k_miller_stepILb0E"}
+
+
+# kernels also fed edge_pairs(): fq.cuh's carry chains with carries and
+# borrows through whole words (fq2_mul's Karatsuba sums and products too)
+EDGE_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul")
+
+
+@functools.lru_cache(maxsize=None)
+def edge_pairs(modulus, r_mont):
+    """Operand pairs (ints below the modulus m) that drive fq.cuh's carry
+    chains through whole words, as tests/test_torch_csrc_host.py's
+    _group_mul_pairs and _sum_edge_pairs make them (this script keeps its own
+    copy).  For the product: every pair of the edge values 0, 1, 2, R mod m,
+    m - 1, m - 2, values whose low k words are all ones (2^32k - 1, and m's
+    top words less one above them) and values with one all-ones word
+    elsewhere; a = r R / b for results r with runs of all-ones or zero words
+    and three b; and the pairs of a seeded search whose CIOS accumulator t
+    before the final subtraction is largest (near 2m) or just below m.  For
+    the sums: a + b = m - 1, m and m + 1, a = b and a = b - 1 for edge values
+    a, and every pair of the all-ones values."""
+    import numpy as np
+
+    m, R = modulus, r_mont
+
+    def cios_t(a, b):
+        mu = (-a * b * pow(m, -1, R)) % R
+        return (a * b + mu * m) // R
+
+    ones = [(1 << (32 * k)) - 1 for k in range(1, 8)]
+    edges = [0, 1, 2, R % m, m - 1, m - 2] + ones
+    edges += [((m >> (32 * k)) << (32 * k)) - 1 for k in range(1, 8)]
+    edges += [0xFFFFFFFF << (32 * j) for j in range(1, 7)]
+    pairs = [(x, y) for x in edges for y in edges]
+    results = ones + [(m >> (32 * k)) << (32 * k) for k in range(1, 8)]
+    results += [m - (1 << (32 * k)) for k in range(1, 8)] + [1 << (32 * k) for k in range(1, 8)]
+    pairs += [(r * R * pow(b, -1, m) % m, b) for r in results for b in (1, m - 1, 0xFFFFFFFF << 96)]
+    rng = np.random.default_rng(395)
+    found = []
+    for _ in range(20000):
+        x, y = (int.from_bytes(rng.bytes(40), "big") % m for _ in range(2))
+        found.append((cios_t(x, y), x, y))
+    found.sort()
+    pairs += [(x, y) for _, x, y in found[-64:] + [f for f in found if f[0] < m][-16:]]
+    pairs += [(x, y) for x in ones for y in ones]
+    for x in [0, 1, 2, m - 1, m - 2, (m - 1) // 2, (m + 1) // 2, R % m] + ones:
+        pairs += [(x, s - x) for s in (m - 1, m, m + 1) if 0 <= s - x < m]
+        pairs += [(x, x)] + ([(x, x + 1)] if x + 1 < m else [])
+    return pairs
 
 
 def statics(name, modulus):
@@ -388,6 +440,12 @@ def main():
         arr = np.moveaxis(limbs.reshape((16,) + tuple(lead) + (batch,)), 0, -2)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
+    def limbs_on_card(vals):
+        """Python ints (a list, or a list of lists for a leading axis) as
+        (..., 16, n) int32 limbs on the card."""
+        rows = [P.ints_to_limbs(v) for v in vals] if isinstance(vals[0], list) else P.ints_to_limbs(vals)
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(rows).astype(np.int32))).to(dev)
+
     def outputs(x):
         return x if isinstance(x, tuple) else (x,)
 
@@ -433,6 +491,26 @@ def main():
                     vals = [P.from_mont(v, modulus) for v in P.limbs_to_ints(ins[0][0, :, :4].cpu().numpy())]
                     if vals[0] != 0 or lanes != [P.to_mont(pow(v, static, modulus), modulus) for v in vals]:
                         fail(f"pow_fixed differs from Python's pow, modulus {modulus:#x}, exponent {static:#x}")
+        # (a2) the edge pairs of the carry chains, one lane a pair; the Fq
+        #      kernels also against Python's integers
+        for modulus in moduli if name in EDGE_KERNELS else ():
+            pairs = edge_pairs(modulus, P.R_MONT)
+            xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
+            if name == "fq2_mul":  # (x, y) (y, x) and (x, x) (y, y)
+                ins = [limbs_on_card([[*xs, *xs], [*ys, *xs]]), limbs_on_card([[*ys, *ys], [*xs, *ys]])]
+            else:
+                ins = [limbs_on_card(xs), limbs_on_card(ys)][: len(structs)]
+            got = kernel(ins, modulus, None)
+            torch.cuda.synchronize()
+            calls += 1
+            max_err = max(max_err, compare(name, got, plain(ins, modulus, None),
+                                           f"on {len(pairs)} edge pairs, modulus {modulus:#x}"))
+            if name != "fq2_mul":
+                r_inv = pow(P.R_MONT, -1, modulus)
+                want = {"mont_mul": lambda x, y: x * y * r_inv, "mod_add": lambda x, y: x + y,
+                        "mod_sub": lambda x, y: x - y, "mod_neg": lambda x, y: -x}[name]
+                if P.limbs_to_ints(got.cpu().numpy()) != [want(x, y) % modulus for x, y in pairs]:
+                    fail(f"kernel {name} differs from Python's integers on the edge pairs, modulus {modulus:#x}")
         if build.COUNTS[name] != calls:
             fail(f"wrapper {name} counted {build.COUNTS[name]} launches for {calls} calls")
         # (b) the main path's shape at B = 8192

@@ -1,9 +1,11 @@
 """The CUDA headers of the port, compiled for the host and held against the
 plain PyTorch versions.
 
-bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ on
-uint32_t/uint64_t, so g++ builds them with tests/torch_csrc_host.cpp standing
-in for the kernels (same offsets, a loop instead of a grid).  This checks the
+bn_tpu_torch/csrc/fq.cuh, tower.cuh and curve.cuh are plain C++ where no
+CUDA compiler is at work (the PTX carry primitives of carry.cuh are C++ twins
+there, each held against Python's integers below), so g++ builds them with
+tests/torch_csrc_host.cpp standing in for the kernels (same offsets, a loop
+instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
 without a GPU, and, for fq12_mul, fq12_mul024_pre, fq12_mul024 and fq12_sq,
 the teams of csrc/fq12_team.cuh, fq12_mul024_team.cuh and fq12_sq_team.cuh
@@ -106,6 +108,8 @@ def host_lib(tmp_path_factory):
     lib.host_miller_step.restype = ctypes.c_int
     lib.host_miller_team.argtypes = [ctypes.c_int] * 2 + [p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
     lib.host_miller_team.restype = ctypes.c_int
+    lib.host_carry.argtypes = [ctypes.c_int, ctypes.c_longlong] + [u32p] * 6
+    lib.host_carry.restype = ctypes.c_int
     return lib
 
 
@@ -416,6 +420,83 @@ def test_header_group_mul_equals_one_thread_product_and_python(host_lib, modulus
     r_inv = pow(TP.R_MONT, -1, modulus)
     want = [x * y * r_inv % modulus for x, y in zip(TP.limbs_to_ints(a[0]), TP.limbs_to_ints(b[0]))]
     assert TP.limbs_to_ints(got[0]) == want
+
+
+def _sum_edge_pairs(modulus):
+    """Operand pairs for the modular sums: a + b = m - 1, m and m + 1, a = b
+    and a = b - 1 for edge values a (0, 1, 2, m - 1, m - 2, halves of m, R mod
+    m, values whose low k words are all ones), and every pair of the
+    all-ones values, so that carries and borrows run through whole words."""
+    m = modulus
+    ones = [(1 << (32 * k)) - 1 for k in range(1, 8)]
+    pairs = [(x, y) for x in ones for y in ones]
+    for x in [0, 1, 2, m - 1, m - 2, (m - 1) // 2, (m + 1) // 2, TP.R_MONT % m] + ones:
+        pairs += [(x, s - x) for s in (m - 1, m, m + 1) if 0 <= s - x < m]
+        pairs += [(x, x)] + ([(x, x + 1)] if x + 1 < m else [])
+    return pairs
+
+
+# carry.cuh's primitives in the order of host_carry's op numbers:
+# name -> (takes an addend c, reads the flag, writes the flag, result before wrapping)
+_W32 = 1 << 32
+CARRY_OPS = {
+    "add_cc": (False, False, True, lambda a, b, c, f: a + b),
+    "addc_cc": (False, True, True, lambda a, b, c, f: a + b + f),
+    "addc": (False, True, False, lambda a, b, c, f: a + b + f),
+    "sub_cc": (False, False, True, lambda a, b, c, f: a - b),
+    "subc_cc": (False, True, True, lambda a, b, c, f: a - b - f),
+    "subc": (False, True, False, lambda a, b, c, f: a - b - f),
+    "mad_lo_cc": (True, False, True, lambda a, b, c, f: a * b % _W32 + c),
+    "madc_lo_cc": (True, True, True, lambda a, b, c, f: a * b % _W32 + c + f),
+    "mad_hi_cc": (True, False, True, lambda a, b, c, f: a * b // _W32 + c),
+    "madc_hi_cc": (True, True, True, lambda a, b, c, f: a * b // _W32 + c + f),
+    "madc_hi": (True, True, False, lambda a, b, c, f: a * b // _W32 + c + f),
+}
+EDGE_WORDS = (0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("name", list(CARRY_OPS))
+def test_carry_primitive_twin_equals_python(host_lib, name):
+    """Each primitive's C++ twin on every pair (for the multiply-adds every
+    triple) of the edge words, the flag in at 0 and 1, against Python's
+    integers: the result mod 2^32, and the flag after it (the carry or the
+    borrow out for a .cc primitive, the flag in, untouched, for the others).
+    A primitive that does not read the flag gives the same for both."""
+    takes_c, reads, writes, value = CARRY_OPS[name]
+    cases = [(a, b, c, f) for a in EDGE_WORDS for b in EDGE_WORDS
+             for c in (EDGE_WORDS if takes_c else (0,)) for f in (0, 1)]
+    a, b, c, f = (np.array(col, dtype=np.uint32) for col in zip(*cases))
+    d, cout = np.empty_like(a), np.empty_like(a)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    args = [x.ctypes.data_as(u32p) for x in (a, b, c, f, d, cout)]
+    assert host_lib.host_carry(list(CARRY_OPS).index(name), len(cases), *args) == 0
+    for k, (x, y, z, fl) in enumerate(cases):
+        full = value(x, y, z, fl if reads else 0)
+        assert int(d[k]) == full % _W32, (name, x, y, z, fl)
+        assert int(cout[k]) == (int(full < 0 or full >= _W32) if writes else fl), (name, x, y, z, fl)
+
+
+_FIELD_OPS = {  # the one-thread kernels of kernels_fq.cu -> Python's value
+    "mont_mul": lambda x, y, m: x * y * pow(TP.R_MONT, -1, m) % m,
+    "mod_add": lambda x, y, m: (x + y) % m,
+    "mod_sub": lambda x, y, m: (x - y) % m,
+    "mod_neg": lambda x, y, m: -x % m,
+}
+
+
+@pytest.mark.parametrize("name", list(_FIELD_OPS))
+@pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
+def test_header_field_op_carry_chains_equal_python(host_lib, modulus, name):
+    """fq.cuh's product, sum, difference and negation, carry chains of
+    carry.cuh's twins, as kernels_fq.cu's one-thread kernels run them, on the
+    pairs of _group_mul_pairs (carries and borrows through whole words, t
+    near 2m and just below m) and, for the three sums, _sum_edge_pairs;
+    against Python's integers."""
+    a, b = (TP.limbs_to_ints(x[0]) for x in _group_mul_pairs(modulus))
+    pairs = list(zip(a, b)) + ([] if name == "mont_mul" else _sum_edge_pairs(modulus))
+    ins = [_limbs([x for x, _ in pairs]), _limbs([y for _, y in pairs])]
+    got = _run_host(host_lib, name, ins[:1] if name == "mod_neg" else ins, modulus)
+    assert TP.limbs_to_ints(got[0]) == [_FIELD_OPS[name](x, y, modulus) for x, y in pairs]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,9 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
+// carry.cuh, fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
 // fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
 // g2_step_team.cuh, miller_step_team.cuh, curve.cuh, curve_team.cuh are plain
-// C++ when no CUDA compiler is at work).
+// C++ when no CUDA compiler is at work: carry.cuh's PTX primitives are their
+// C++ twins there).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
 // the formulas and the memory layout can be checked on a machine without a
 // GPU.  Built and driven by tests/test_torch_csrc_host.py.
@@ -489,5 +490,33 @@ extern "C" int host_curve_team(int add, int fq2, int reverse, const int32_t* con
     curve_team_law<Fq2>(add, in, out, rows, B, m, reverse);
   else
     curve_team_law<Fq>(add, in, out, rows, B, m, reverse);
+  return 0;
+}
+
+// carry.cuh's primitives (their host twins), in the order of CARRY_OPS in
+// tests/test_torch_csrc_host.py, element by element: the flag starts at
+// cin[k], d[k] is the result and cout[k] the flag after it.  Two-operand
+// primitives ignore c.
+extern "C" int host_carry(int op, long long n, const uint32_t* a, const uint32_t* b, const uint32_t* c,
+                          const uint32_t* cin, uint32_t* d, uint32_t* cout) {
+  for (long long k = 0; k < n; k++) {
+    Carry f;
+    f.cf = cin[k];
+    switch (op) {
+      case 0: d[k] = add_cc(f, a[k], b[k]); break;
+      case 1: d[k] = addc_cc(f, a[k], b[k]); break;
+      case 2: d[k] = addc(f, a[k], b[k]); break;
+      case 3: d[k] = sub_cc(f, a[k], b[k]); break;
+      case 4: d[k] = subc_cc(f, a[k], b[k]); break;
+      case 5: d[k] = subc(f, a[k], b[k]); break;
+      case 6: d[k] = mad_lo_cc(f, a[k], b[k], c[k]); break;
+      case 7: d[k] = madc_lo_cc(f, a[k], b[k], c[k]); break;
+      case 8: d[k] = mad_hi_cc(f, a[k], b[k], c[k]); break;
+      case 9: d[k] = madc_hi_cc(f, a[k], b[k], c[k]); break;
+      case 10: d[k] = madc_hi(f, a[k], b[k], c[k]); break;
+      default: return 1;
+    }
+    cout[k] = f.cf;
+  }
   return 0;
 }

@@ -30,9 +30,13 @@ time them
 at the widths of ops/curve_cuda.py's crossover with --graph --batch 1 8192
 8448 10240 12288 16384 32768 65536 262144 1048576 (1: the MSM's Horner
 doublings; 8448: one wave of the team's blocks on 132 multiprocessors).
-For the rest: the Montgomery product called out of line (-DBN_MUL_OUT_OF_LINE)
-against the same product inlined at each of its 7 to 54 uses.  ops/build.py's
-SOURCE_FLAGS holds the choices made from these numbers.
+The one-thread kernels of kernels_fq.cu (mont_mul, mod_add, mod_sub,
+mod_neg, fq2_mul, fq2_sq, fq2_xi, at the main path's shapes: FLAT_ROWS
+elements a lane) have the package's build alone, mont_mul also the
+Montgomery product as lo/hi carry chains (LOHI_SOURCE) against fq.cuh's
+product on two arrays of even and odd products.  Every label has the variant
+"package": the package's source with ops/build.py's SOURCE_FLAGS (for a
+team the same build as "team").
 
 For each kernel and each variant it prints one JSON line:
 nvcc's build time, what `ptxas -v` reports for the source's entries (registers,
@@ -42,12 +46,16 @@ captured as a CUDA graph, variants in turns: a, b, b, a, or a, b, c,
 c, b, a; with --turns N that sequence N times), and whether every variant
 returns the first one's limbs.  --parent DIR adds to every picked kernel
 the build "parent": the same source file and flags from the checkout DIR
-(an unpacked parent commit), for the before-and-after of a change; --only
-VAR ... keeps those variants alone (e.g. --only team parent); with
---together, --pairing swaps all picked kernels at once (the package's
-builds against the parent's, say).
+(an unpacked parent commit), for the before-and-after of a change (for a
+curve label also "parent_thread", its one-thread design); --only VAR ...
+keeps those variants alone (e.g. --only package parent); with --together,
+--pairing swaps all picked kernels at once (the package's builds against
+the parent's, say).  --build-only builds the picked variants, prints what
+ptxas reports for each entry (and with --sass the SASS counts) and times
+nothing.
 With --pairing it then times `ate.pairing_batch` at B = 8192 with the
-package's build of each picked team kernel swapped for its one-thread build,
+package's build of each picked kernel swapped for its other builds (a
+team's one-thread build, the parent's),
 one kernel at a time, and, when fq12_mul024_pre and fq12_sq are both picked,
 the two together (the Miller loop's two kernels), likewise double_step with
 madd_step (the precompute's two) and pow_fixed with fq12_cyclo_sq (the two
@@ -67,7 +75,7 @@ eager call under torch.profiler; one JSON line per group and design.
 --sass also gives each function's instructions.  Run from the repository
 root on a machine with a GPU and nvcc:
     python3 tools/torch_kernel_variants.py [kernel ...] [--batch B ...] [--pairing]
-        [--turns N] [--parent DIR] [--only VAR ...] [--together] [--ladder] [--sass]
+        [--turns N] [--parent DIR] [--only VAR ...] [--together] [--ladder] [--sass] [--build-only]
 where the optional labels (e.g. fq12_mul) pick kernels, all by default
 (none with --ladder alone), and
 --batch the batch sizes, B = 8192 (the main path's) by default.  A batch of
@@ -102,9 +110,11 @@ from bn_tpu_torch.ops import mont_cuda as mc  # noqa: E402
 from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 
 B = 8192  # the main path's batch, and the number of distinct values the inputs draw from
-VARIANTS = {"call": ["-DBN_MUL_OUT_OF_LINE"], "inline": []}
+VARIANTS = {"package": []}  # the one-thread kernels of kernels_fq.cu: the package's build alone
 # kernels whose variants are others than VARIANTS
 OWN_VARIANTS = {
+    # fq.cuh's product (two arrays of even and odd products) against the lo/hi chains of LOHI_SOURCE
+    "mont_mul": {"package": [], "lohi": []},
     "fq12_mul": {
         "team": ["-DBN_MUL_OUT_OF_LINE"],
         "thread": ["-DBN_MUL_OUT_OF_LINE"],
@@ -162,7 +172,7 @@ OWN_VARIANTS = {
     } for name in ("point_add", "point_double") for group in ("G1", "G2")},
 }
 # the design argument each variant of a curve label passes (csrc/kernels_curve.cu)
-CURVE_DESIGN_ARG = {"team": 1, "thread": 0, "team_fq_a_warp": 1}
+CURVE_DESIGN_ARG = {"team": 1, "thread": 0, "team_fq_a_warp": 1, "package": 1, "parent": 1, "parent_thread": 0}
 CURVE_LABELS = tuple(f"{n} {g}" for n in ("point_add", "point_double") for g in ("G1", "G2"))
 # variants built from another source than csrc/<stem>.cu
 THREAD_SOURCE = r"""
@@ -799,6 +809,85 @@ int bn_point_double(const void* x, const void* y, const void* z, void* ox, void*
 }
 }  // extern "C"
 """
+LOHI_PRODUCT = r"""
+// The Montgomery product as lo/hi carry chains: word-2^32 CIOS on one
+// accumulator t[0..8], each row's a b_i and mu m as one chain of the low
+// halves (words 0..7, its carry into word 8) and one of the high halves
+// (words 1..8), on carry.cuh's primitives.  The plain form of CIOS on carry
+// chains, kept as the baseline of fq.cuh's product on two arrays of even and
+// odd products.  t < 2^288 while a row runs (t < 2m between rows), so no
+// chain leaves word 8.
+#include "launch.cuh"
+
+BN_DEV void lohi_row(uint32_t* t, const uint32_t* v, uint32_t k) {
+  Carry c;
+  t[0] = mad_lo_cc(c, v[0], k, t[0]);
+#pragma unroll
+  for (int j = 1; j < BN_NW; j++) t[j] = madc_lo_cc(c, v[j], k, t[j]);
+  t[BN_NW] = addc(c, t[BN_NW], 0u);
+  Carry d;
+  t[1] = mad_hi_cc(d, v[0], k, t[1]);
+#pragma unroll
+  for (int j = 1; j < BN_NW - 1; j++) t[j + 1] = madc_hi_cc(d, v[j], k, t[j + 1]);
+  t[BN_NW] = madc_hi(d, v[BN_NW - 1], k, t[BN_NW]);
+}
+
+BN_DEV Fq mont_mul_lohi(const Fq& a, const Fq& b, const Mod& m) {
+  uint32_t t[BN_NW + 1];
+#pragma unroll
+  for (int j = 0; j <= BN_NW; j++) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < BN_NW; i++) {
+    lohi_row(t, a.w, b.w[i]);
+    lohi_row(t, m.w, t[0] * m.inv);
+#pragma unroll
+    for (int j = 0; j < BN_NW; j++) t[j] = t[j + 1];
+    t[BN_NW] = 0;
+  }
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < BN_NW; j++) r.w[j] = t[j];
+  return fq_cond_sub(r, 0u, m);
+}
+
+"""
+LOHI_SOURCE = LOHI_PRODUCT + r"""
+// mont_mul on it, with the same entry as kernels_fq.cu's.
+__global__ void __launch_bounds__(128)
+k_mont_mul_lohi(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
+                int64_t rows, int64_t B, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= rows * B) return;
+  int64_t off = (t / B) * BN_NLIMB * B + (t % B);
+  fq_store(o + off, B, mont_mul_lohi(fq_load(a + off, B), fq_load(b + off, B), m));
+}
+
+extern "C" int bn_mont_mul(const void* a, const void* b, void* o, long long rows, long long B,
+                           const uint32_t* mod, uint32_t inv, void* stream) {
+  k_mont_mul_lohi<<<bn_grid(rows * B, 128), 128, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
+  return (int)cudaGetLastError();
+}
+"""
+# The product alone, for its SASS: one thread an element squares it n times in
+# a loop that is not unrolled, so the loop's instructions are one product's
+# and the loop's own three or so.  Built on the package's headers, on the
+# parent's (--parent) and with LOHI_PRODUCT (BN_PRODUCT names the product).
+PRODUCT_LOOP_SOURCE = r"""
+#include "launch.cuh"
+#ifndef BN_PRODUCT
+#define BN_PRODUCT fq_mont_mul_inline
+#endif
+
+__global__ void k_product_loop(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t B, int n, Mod m) {
+  int64_t t = bn_tid();
+  if (t >= B) return;
+  Fq x = fq_load(a + t, B);
+#pragma unroll 1
+  for (int i = 0; i < n; i++) x = BN_PRODUCT(x, x, m);
+  fq_store(o + t, B, x);
+}
+"""
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
     ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
@@ -815,13 +904,22 @@ OWN_SOURCES = {
     ("miller_step no square", "thread"): MILLER_THREAD_SOURCE,
     ("point_add G2", "team_fq_a_warp"): KARATSUBA_TEAM_SOURCE,
     ("point_double G2", "team_fq_a_warp"): KARATSUBA_TEAM_SOURCE,
+    ("mont_mul", "lohi"): LOHI_SOURCE,
 }
-PAIRING_VARIANTS = ("team", "thread")  # the builds that --pairing swaps in, for each kernel of OWN_VARIANTS
+PAIRING_VARIANTS = ("team", "thread", "package")  # the builds that --pairing swaps in, where a kernel has them
 NOT_IN_PAIRING = ("fq12_mul024",)  # kernels pairing_batch never launches: --pairing does not swap them
 # swapped together too when both are picked: the Miller loop's two teams, the precompute's two,
 # the Fermat inversion's group with the single cyclotomic squaring
 TEAM_PAIRS = (("fq12_mul024_pre", "fq12_sq"), ("double_step", "madd_step"), ("pow_fixed", "fq12_cyclo_sq"))
 KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like the first operand, own arguments)
+    # the one-thread kernels of kernels_fq.cu at the main path's shapes (FLAT_ROWS elements a lane)
+    "mont_mul": ("mont_mul", [(), ()], 1, ()),
+    "mod_add": ("mod_add", [(2,), (2,)], 1, ()),
+    "mod_sub": ("mod_sub", [(2,), (2,)], 1, ()),
+    "mod_neg": ("mod_neg", [(2,)], 1, ()),
+    "fq2_mul": ("fq2_mul", [(5, 2), (5, 2)], 1, ()),
+    "fq2_sq": ("fq2_sq", [(2,)], 1, ()),
+    "fq2_xi": ("fq2_xi", [(2,)], 1, ()),
     "fq12_mul": ("fq12_mul", [(2, 3, 2), (2, 3, 2)], 1, ()),
     "fq12_sq": ("fq12_sq", [(2, 3, 2)], 1, ()),
     "fq12_mul024_pre": ("fq12_mul024_pre", [(2, 3, 2), (2,), (2, 2)], 1, ()),
@@ -840,6 +938,10 @@ KERNELS = {  # label -> (entry, operand structs, number of outputs shaped like t
     # the Fermat inversion of the main path: e = q - 2, 64 digits
     "pow_fixed": ("pow_fixed", [()], 1, mc._pow_args(P.Q - 2, P.Q)),
 }
+
+
+# the flat kernels' rows: field elements (Fq2 elements for fq2_*) a lane of the batch
+FLAT_ROWS = {"mod_add": 2, "mod_sub": 2, "mod_neg": 2, "fq2_mul": 5}
 
 
 # labels timed with several sets of own arguments, in place of KERNELS': the
@@ -867,6 +969,8 @@ def main():
                     help="with --pairing, swap every picked kernel at once, in place of one at a time and in pairs")
     ap.add_argument("--graph", action="store_true",
                     help="time each kernel's 50 launches as a replayed CUDA graph, not as 50 launches from Python")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the picked variants, print what ptxas (and with --sass cuobjdump) reports, time nothing")
     ap.add_argument("--ladder", action="store_true",
                     help="time a G1 and a G2 curve.mul at B = 8192 as replayed CUDA graphs, team against one-thread design")
     args = ap.parse_args()
@@ -879,12 +983,17 @@ def main():
 
     def variants_of(label):
         """variant -> (nvcc flags, source path or None for the package's).
-        A curve label has no parent variant: the parent's C entries take no
-        design argument."""
+        Every label has "package", the package's source with its
+        build.SOURCE_FLAGS (for a team the same build as "team"); with
+        --parent also "parent", the checkout's, and for a curve label
+        "parent_thread", that build's one-thread design."""
         stem = build.ENTRIES[KERNELS[label][0]][0]
         out = {var: (flags, None) for var, flags in OWN_VARIANTS.get(label, VARIANTS).items()}
-        if args.parent is not None and label not in CURVE_LABELS:
+        out.setdefault("package", (build.SOURCE_FLAGS.get(stem, []), None))
+        if args.parent is not None:
             out["parent"] = (build.SOURCE_FLAGS.get(stem, []), args.parent / "bn_tpu_torch" / "csrc" / f"{stem}.cu")
+            if label in CURVE_LABELS:
+                out["parent_thread"] = out["parent"]
         return {v: x for v, x in out.items() if args.only is None or v in args.only}
 
     # start every compile at once (one per source and distinct flags), then
@@ -916,6 +1025,12 @@ def main():
     if args.sass:
         for (stem, var), key in build_of.items():
             print(json.dumps({"sass": stem, "variant": var, **sass_counts(procs[key][1]), "card": card}), flush=True)
+        if "mont_mul" in picked:
+            product_sass(out_dir, args.parent, card)
+    if args.build_only:
+        for (stem, var), log in logs.items():
+            print(json.dumps({"ptxas": stem, "variant": var, "entries": ptxas_entries(log), "card": card}), flush=True)
+        return
 
     rng = np.random.default_rng(7)
     pool = torch.from_numpy(
@@ -942,7 +1057,8 @@ def main():
             fn.restype = ctypes.c_int
             o = torch.stack([torch.empty_like(ins[0]) for _ in range(n_out)])
             design = (CURVE_DESIGN_ARG[var],) if label in CURVE_LABELS else ()
-            call_args = [t.data_ptr() for t in ins] + [x.data_ptr() for x in o] + [1, batch, *own, *design, words, inv32]
+            call_args = ([t.data_ptr() for t in ins] + [x.data_ptr() for x in o]
+                         + [FLAT_ROWS.get(label, 1), batch, *own, *design, words, inv32])
             assert fn(*call_args, stream) == 0
             torch.cuda.synchronize()
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -981,7 +1097,7 @@ def main():
             }), flush=True)
 
     if args.pairing:
-        entries = [KERNELS[k][0] for k in picked if k in OWN_VARIANTS and KERNELS[k][0] not in NOT_IN_PAIRING]
+        entries = [KERNELS[k][0] for k in picked if k not in CURVE_LABELS and KERNELS[k][0] not in NOT_IN_PAIRING]
         if args.together:
             swaps = [tuple(dict.fromkeys(entries))]
         else:
@@ -994,6 +1110,46 @@ def main():
                          card)
     if args.ladder:
         time_ladder(card)
+
+
+def ptxas_entries(log):
+    """What `ptxas -v` printed for each entry function of a build: its
+    registers, stack frame and spill stores and loads, by mangled name."""
+    out = {}
+    for blk in re.split(r"(?=ptxas info\s+: Compiling entry function)", log):
+        head = re.match(r"ptxas info\s+: Compiling entry function '([^']+)'", blk)
+        if not head:
+            continue
+        regs = re.search(r"Used (\d+) registers", blk)
+        own = re.search(re.escape(head.group(1)) + r"\s*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", blk)
+        out[head.group(1)] = {"registers": int(regs.group(1)) if regs else None,
+                              "stack_spillstore_spillload_bytes": [int(x) for x in own.groups()] if own else None}
+    return out
+
+
+def product_sass(out_dir, parent, card):
+    """The Montgomery product's SASS instructions, the shortest loop of
+    PRODUCT_LOOP_SOURCE's build: fq.cuh's product ("package"), the lo/hi
+    chains of LOHI_PRODUCT ("lohi") and, given a checkout, its fq.cuh's
+    ("parent", its csrc/ first on the include path)."""
+    builds = {"package": ([], PRODUCT_LOOP_SOURCE),
+              "lohi": (["-DBN_PRODUCT=mont_mul_lohi"], LOHI_PRODUCT + PRODUCT_LOOP_SOURCE)}
+    if parent is not None:
+        builds["parent"] = (["-I", str(parent / "bn_tpu_torch" / "csrc")], PRODUCT_LOOP_SOURCE)
+    procs = {}
+    for var, (flags, text) in builds.items():
+        src = out_dir / f"product_loop.{var}.cu"
+        src.write_text(text)
+        so = out_dir / f"libproduct_loop.{var}.so"
+        procs[var] = (build.compile_start("product_loop", so, flags, src), so)
+    for var, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for the product loop {var}:\n{log}")
+        counts = sass_counts(so)
+        print(json.dumps({"sass_product": var, "product_loop_instructions": min(counts["loop_instructions"]),
+                          "loop_instructions": counts["loop_instructions"], "kernel_instructions": counts["instructions"],
+                          "imad": counts["imad"], "ptxas": ptxas_entries(log), "card": card}), flush=True)
 
 
 def sass_counts(so):
