@@ -24,16 +24,17 @@ from . import oracle as O
 from . import params as P
 from .fields import tower
 from .ops import backend
+from .ops import mont_cuda as mc
 from .ops import tower_cuda as tc
 
 
 @functools.lru_cache(maxsize=None)
-def _consts(device_str: str):
-    """The twist-Frobenius coefficients on one device."""
-    dev = torch.device(device_str)
+def _mulq_consts(device_str: str):
+    """The twist-Frobenius coefficients of x and y stacked, (2, 2, L, 1), on
+    one device."""
     mulq_x, mulq_y = O.twist_frob_coeffs()
-    host = {"mulq_x": tower._fq2_const(mulq_x), "mulq_y": tower._fq2_const(mulq_y)}
-    return {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in host.items()}
+    host = np.stack([tower._fq2_const(mulq_x), tower._fq2_const(mulq_y)])
+    return torch.from_numpy(host.astype(np.int32)).to(torch.device(device_str))
 
 
 def _doubling_step(r):
@@ -46,27 +47,37 @@ def _mixed_addition_step(r, base):
     return tc.g2_madd_step(tower._F, r, base)
 
 
-def _mul_by_q(a):
-    """Untwist-Frobenius-twist on affine G2 (src/groups/mod.rs:550-555)."""
-    t = tower
-    cs = _consts(str(a[0].device))
-    return (
-        t.fq2_mul(t.fq2_conj(a[0]), cs["mulq_x"]),
-        t.fq2_mul(t.fq2_conj(a[1]), cs["mulq_y"]),
-    )
+# the conjugates of x and y from their coefficients x0 x1 y0 y1; with y's
+# signs flipped, the conjugate of -y
+CONJ_XY = (((0, 1),), ((1, -1),), ((2, 1),), ((3, -1),))
+CONJ_X_NEG_Y = (((0, 1),), ((1, -1),), ((2, -1),), ((3, 1),))
+
+
+def _mul_by_q(a, negate: bool = False):
+    """Untwist-Frobenius-twist on affine G2 (src/groups/mod.rs:550-555): both
+    conjugates in one launch, both products by the constants in one fq2_mul.
+    With `negate` the point is negated too, -(conj(y) c) = (-conj(y)) c: a
+    sign of the same launch.  Returns (x, y) stacked, (2, ..., 2, L, B)."""
+    x, y = a
+    conj = x.new_empty((2,) + tuple(x.shape))
+    srcs = (tower.c2(x, 0), tower.c2(x, 1), tower.c2(y, 0), tower.c2(y, 1))
+    outs = [tower.c2(conj[k], c) for k in range(2) for c in range(2)]
+    mc.mod_signed_sum(CONJ_X_NEG_Y if negate else CONJ_XY, srcs, P.Q, out=outs)
+    cs = _mulq_consts(str(x.device))
+    return tower.fq2_mul(conj, cs.reshape((2,) + (1,) * (x.dim() - 3) + tuple(cs.shape[1:])))
 
 
 def _ladder_inputs(q_affine):
-    """Step flags, per-step base index, and the three base points (Q, q1, -q2).
+    """Step flags, per-step base index, and the three base points (Q, q1, -q2),
+    each stacked (..., 2, 2, L, B).
 
     The final two ladder slots add the Frobenius-twisted points q1 and -q2
     (src/groups/mod.rs:578-582): index 0 = Q for the ladder, 1 = q1, 2 = -q2."""
     flags = P.miller_schedule()
     bx, by = q_affine
     q1 = _mul_by_q((bx, by))
-    q2_ = _mul_by_q(q1)
-    q2 = (q2_[0], tower.neg(q2_[1]))
-    bases = ((bx, by), q1, q2)
+    q2 = _mul_by_q(tuple(q1), negate=True)
+    bases = (torch.stack([bx, by], dim=-4), q1.movedim(0, -4), q2.movedim(0, -4))
     base_idx = [0] * len(flags)
     base_idx[-2], base_idx[-1] = 1, 2
     return flags, base_idx, bases
@@ -76,13 +87,12 @@ def _precompute_fused(q_affine):
     """The ladder with one `double_step` / `madd_step` kernel per step.  The
     result tensor is allocated once and each step writes its own slice; the
     running point goes back and forth between two buffers; the three base
-    points are stacked once."""
+    points come stacked from _ladder_inputs."""
     flags, base_idx, bases = _ladder_inputs(q_affine)
     bx, by = q_affine
     lead = bx.dim() - 3
     batch_shape = tuple(bx.shape[:-3]) + (bx.shape[-1],)
     r = torch.stack([bx, by, tower.ones2(batch_shape, bx.device)], dim=-4)  # (*lead, 3, 2, L, B)
-    bases = [torch.stack(b, dim=-4) for b in bases]  # (*lead, 2, 2, L, B) each
     coeffs = torch.empty((len(flags),) + tuple(r.shape), dtype=r.dtype, device=r.device)
     spare = torch.empty_like(r)
     for k, (is_add, idx) in enumerate(zip(flags, base_idx)):
@@ -113,7 +123,7 @@ def precompute(q_affine):
     coeffs = []
     for is_add, idx in zip(flags, base_idx):
         if is_add:
-            r, c = _mixed_addition_step(r, bases[idx])
+            r, c = _mixed_addition_step(r, (tower.c6(bases[idx], 0), tower.c6(bases[idx], 1)))
         else:
             r, c = _doubling_step(r)
         coeffs.append(c)

@@ -1,11 +1,14 @@
-// Base-field and Fq2 kernels: mont_mul, mod_add, mod_sub, mod_neg, fq2_mul,
-// fq2_sq, fq2_xi.
+// Base-field and Fq2 kernels: mont_mul, mod_add, the signed sums (mod_sub,
+// mod_neg and a whole level of sums), fq2_mul, fq2_sq, fq2_xi.
 //
 // They replace the Pallas TPU kernels of bn_tpu/ops/mont_pallas.py:
 //   bn_mont_mul <- mont_mul_pallas (_k_mont_mul)   bn_fq2_mul <- fq2_mul_pallas
 //   bn_mod_add  <- mod_add_pallas  (_k_add)        bn_fq2_sq  <- fq2_sq_pallas
 //   bn_mod_sub  <- mod_sub_pallas  (_k_sub)        bn_fq2_xi  <- fq2_xi_pallas
 //   bn_mod_neg  <- mod_neg_pallas  (_k_neg)
+// bn_mod_sub and bn_mod_neg launch k_signed_sum (signed_sum.cuh) on a table
+// of one output fixed at compile time; bn_mod_signed_sum on a level of up to
+// sixteen outputs.
 // The TPU kernels walk (8, 128) tiles of 1024 batch elements with 16-bit
 // limbs in 32-bit lanes.  Here one thread owns one field element (or one Fq2
 // element): it loads the sixteen limbs, packs them into eight 32-bit words,
@@ -13,20 +16,22 @@
 // axis, so a warp's load of one limb is one coalesced 128-byte line; the
 // ragged edge is a bounds test, not padding.
 //
-// What bounds them on an H100: mod_add/sub/neg and fq2_xi do a few dozen
-// integer adds per 64-128 bytes moved and are bound by device-memory bytes
-// (and, at the sizes of one pairing step, by launch latency).  mont_mul,
+// What bounds them on an H100: the sums and fq2_xi do a few dozen integer
+// adds per 64-128 bytes moved and are bound by device-memory bytes, and at
+// the sizes of one pairing step by the launch floor (about 1 us, more than
+// half of a single sum's time): so a level of sums is one launch.  mont_mul,
 // fq2_mul and fq2_sq are bound by integer multiply-add throughput: 136 32x32->64
 // multiply-adds per base-field product.  The design keeps every operand in
 // registers (an Fq2 product needs about 60) so that neither spills.
 #include "launch.cuh"
+#include "signed_sum.cuh"
 #include "tower.cuh"
 
 #define BN_BLOCK 128
 
 // Flat elementwise kernels over `rows` field elements of batch B: thread t
 // owns element (row, b) = (t / B, t % B), whose limb i is at (row*16 + i)*B + b.
-enum { OP_MUL = 0, OP_ADD = 1, OP_SUB = 2 };
+enum { OP_MUL = 0, OP_ADD = 1 };
 
 template <int OP>
 __global__ void __launch_bounds__(BN_BLOCK)
@@ -40,16 +45,30 @@ k_binary(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* 
   Fq r;
   if (OP == OP_MUL) r = fq_mont_mul(x, y, m);
   if (OP == OP_ADD) r = fq_add(x, y, m);
-  if (OP == OP_SUB) r = fq_sub(x, y, m);
   fq_store(o + off, B, r);
 }
 
+// A level of signed sums: block (x, y, z) holds lanes 128x .. 128x + 127 of
+// row y (and of every row gridDim.y further on) of output z, so a warp's load
+// of one limb is one coalesced 128-byte line and the output, its terms and
+// their sources are the same for the whole block.  The table is a
+// __grid_constant__ parameter: a SumTable, indexed by the block's output and
+// a term's source, is read from the constant bank and never copied to local
+// memory; a single operation's SumDense has its terms in the instantiation.
+template <class Table>
 __global__ void __launch_bounds__(BN_BLOCK)
-k_neg(const int32_t* __restrict__ a, int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m) {
-  int64_t t = bn_tid();
-  if (t >= rows * B) return;
-  int64_t off = (t / B) * BN_NLIMB * B + (t % B);
-  fq_store(o + off, B, fq_neg(fq_load(a + off, B), m));
+k_signed_sum(const __grid_constant__ Table t, const __grid_constant__ Mod m) {
+  const int64_t b = (int64_t)blockIdx.x * BN_BLOCK + threadIdx.x;
+  if (b >= t.B) return;
+  for (int32_t row = blockIdx.y; row < t.rows; row += gridDim.y) signed_sum_element(t, blockIdx.z, row, b, m);
+}
+
+template <class Table>
+static int signed_sum_launch(const Table& t, const Mod& m, void* stream) {
+  if (t.rows == 0 || t.B == 0) return 0;
+  const dim3 grid(bn_grid(t.B, BN_BLOCK), t.rows < 65535 ? t.rows : 65535, t.n_out);
+  k_signed_sum<<<grid, BN_BLOCK, 0, (cudaStream_t)stream>>>(t, m);
+  return (int)cudaGetLastError();
 }
 
 // Fq2 kernels over `rows` Fq2 elements of batch B: element (row, b) has its
@@ -117,13 +136,27 @@ int bn_mod_add(const void* a, const void* b, void* o, long long rows, long long 
 
 int bn_mod_sub(const void* a, const void* b, void* o, long long rows, long long B,
                const uint32_t* mod, uint32_t inv, void* stream) {
-  BN_LAUNCH(k_binary<OP_SUB>, rows * B, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B,
-            bn_make_mod(mod, inv))
+  SumDense<1, -2> t;  // a - b
+  if (!signed_sum_dense(t, (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B)) return (int)cudaErrorInvalidValue;
+  return signed_sum_launch(t, bn_make_mod(mod, inv), stream);
 }
 
 int bn_mod_neg(const void* a, void* o, long long rows, long long B, const uint32_t* mod,
                uint32_t inv, void* stream) {
-  BN_LAUNCH(k_neg, rows * B, (const int32_t*)a, (int32_t*)o, rows, B, bn_make_mod(mod, inv))
+  SumDense<-1, 0> t;  // -a
+  if (!signed_sum_dense(t, (const int32_t*)a, nullptr, (int32_t*)o, rows, B)) return (int)cudaErrorInvalidValue;
+  return signed_sum_launch(t, bn_make_mod(mod, inv), stream);
+}
+
+// desc: four int64 an operand (address, then the element strides of the row
+// axes r0, r1, r2), the n_src sources then the n_out outputs; terms:
+// BN_SUM_MAX_TERMS codes an output (signed_sum.cuh).  Every operand has
+// `rows` rows of a dense (16, B) block; n1 and n2 are the extents of r1, r2.
+int bn_mod_signed_sum(const long long* desc, const int8_t* terms, int n_src, int n_out, int n1, int n2,
+                      long long rows, long long B, const uint32_t* mod, uint32_t inv, void* stream) {
+  SumTable t;
+  if (!signed_sum_table(t, desc, terms, n_src, n_out, n1, n2, rows, B)) return (int)cudaErrorInvalidValue;
+  return signed_sum_launch(t, bn_make_mod(mod, inv), stream);
 }
 
 int bn_fq2_mul(const void* a, const void* b, void* o, long long rows, long long B,

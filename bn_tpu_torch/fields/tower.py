@@ -12,9 +12,12 @@ fq12_mul_by_024_prescaled, fq12_cyclotomic_sq and a run of cyclotomic
 squarings are one kernel each on the card (ops/mont_cuda.py,
 ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
 their independent Fq2 products along a new leading axis and send them
-through one fq2_mul call.  Formulas mirror the reference crate
-(src/fields/fq2.rs, fq6.rs, fq12.rs), which pin the golden vectors;
-addition and negation work on whole tower tensors at once.
+through one fq2_mul call, and do their sums, differences, negations and
+conjugations a level at a time: one `mod_signed_sum` launch a level, which
+writes its results into the stacked operand or the packed element that reads
+them.  Formulas mirror the reference crate (src/fields/fq2.rs, fq6.rs,
+fq12.rs), which pin the golden vectors; addition and negation work on whole
+tower tensors at once.
 """
 
 from __future__ import annotations
@@ -160,21 +163,34 @@ def fq2_mul_by_xi(a):
     return mc.fq2_xi(a, P.Q)
 
 
+# (x0, -x1): a conjugation, and the sign of a half of an Fq12
+CONJ = (((0, 1),), ((1, -1),))
+
+
+def _negate_second(x0, x1, axis: int):
+    """(x0, -x1) packed along `axis` of a new tensor: one signed-sum launch."""
+    out = x0.new_empty(x0.shape[: x0.dim() + axis + 1] + (2,) + x0.shape[x0.dim() + axis + 1 :])
+    mc.mod_signed_sum(CONJ, (x0, x1), P.Q, out=out.movedim(axis, 0))
+    return out
+
+
 def fq2_conj(a):
-    return pack2(c2(a, 0), fp.neg(FQ, c2(a, 1)))
+    """The conjugate of every Fq2 coefficient of a: of an Fq2, an Fq6 or an
+    Fq12 alike, in one launch."""
+    return _negate_second(a.select(-3, 0), a.select(-3, 1), -3)
 
 
 def fq2_frob(a, power: int):
+    """x -> x^(q^power) on every Fq2 coefficient of a."""
     return a if power % 2 == 0 else fq2_conj(a)
 
 
 def fq2_inv(a):
     """Algorithm 8 (src/fields/fq2.rs:125-136); one Fermat chain."""
-    a0, a1 = c2(a, 0), c2(a, 1)
-    s0, s1 = fp.mul_many(FQ, [(a0, a0), (a1, a1)])
-    t = fp.inv(FQ, fp.add(FQ, s0, s1))
-    p0, p1 = fp.mul_many(FQ, [(a0, t), (a1, t)])
-    return pack2(p0, fp.neg(FQ, p1))
+    sq = fp.mul(FQ, a, a)  # a0^2, a1^2
+    t = fp.inv(FQ, fp.add(FQ, c2(sq, 0), c2(sq, 1)))
+    p = fp.mul(FQ, a, t[..., None, :, :])  # a0 t, a1 t
+    return _negate_second(c2(p, 0), c2(p, 1), -3)
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +200,8 @@ def fq2_inv(a):
 # the field the shared formulas of ops/tower_cuda.py (Fq6 product, precompute
 # steps) run on here: the dispatching wrappers
 _F = types.SimpleNamespace(
-    add=add, sub=sub, neg=neg, mul=lambda a, b: fp.mul(FQ, a, b), fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi
+    add=add, sub=sub, neg=neg, mul=lambda a, b: fp.mul(FQ, a, b), fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi,
+    signed_sum=lambda terms, sources, out=None: mc.mod_signed_sum(terms, sources, P.Q, out),
 )
 
 
@@ -198,30 +215,39 @@ def fq6_mul(a, b):
     return tc.fq6_mul(_F, a, b)
 
 
+# fq6_inv's two levels of signed sums.  The first reads a0 a1 a2 xi(a2) and
+# writes both stacked operands of the six products (copies); the second reads
+# the products s_a0 a1xa2 s_a2 a0a1 s_a1 a0a2 and xi(s_a2) and writes
+# (k0, k2, k1), the partners of (a0, a1, a2), then (k0, k1, k2).
+FQ6_INV_OPERANDS = tuple(((i, 1),) for i in (0, 1, 2, 0, 1, 0, 0, 3, 2, 1, 1, 2))
+_K0, _K1, _K2 = ((0, 1), (1, -1)), ((6, 1), (3, -1)), ((4, 1), (5, -1))
+FQ6_INV_NORM_FACTORS = (_K0, _K2, _K1, _K0, _K1, _K2)
+
+
 def fq6_inv(a):
-    """Norm-based inversion (src/fields/fq6.rs:129-141)."""
+    """Norm-based inversion (src/fields/fq6.rs:129-141): k0 = a0^2 - xi a1 a2,
+    k1 = xi a2^2 - a0 a1, k2 = a1^2 - a0 a2, norm = xi (a2 k1 + a1 k2) + a0 k0,
+    a^-1 = (k0, k1, k2) / norm."""
     a0, a1, a2 = (c6(a, i) for i in range(3))
-    xi_a2 = fq2_mul_by_xi(a2)
-    s_a0, a1xa2, s_a2, a0a1, s_a1, a0a2 = fq2_mul(
-        torch.stack([a0, a1, a2, a0, a1, a0]), torch.stack([a0, xi_a2, a2, a1, a1, a2])
-    )
-    k0 = sub(s_a0, a1xa2)
-    k1 = sub(fq2_mul_by_xi(s_a2), a0a1)
-    k2 = sub(s_a1, a0a2)
-    p = fq2_mul(torch.stack([a2, a1, a0]), torch.stack([k1, k2, k0]))
-    norm = add(fq2_mul_by_xi(add(p[0], p[1])), p[2])
+    operands = mc.mod_signed_sum(FQ6_INV_OPERANDS, (a0, a1, a2, fq2_mul_by_xi(a2)), P.Q)
+    prods = fq2_mul(operands[:6], operands[6:])
+    ks = mc.mod_signed_sum(FQ6_INV_NORM_FACTORS, (*prods, fq2_mul_by_xi(prods[2])), P.Q)
+    p = fq2_mul(a.movedim(-4, 0), ks[:3])  # a0 k0, a1 k2, a2 k1
+    norm = add(fq2_mul_by_xi(add(p[2], p[1])), p[0])
     t = fq2_inv(norm)
-    p = fq2_mul(t[None], torch.stack([k0, k1, k2]))
-    return pack6(p[0], p[1], p[2])
+    return fq2_mul(t[None], ks[3:]).movedim(0, -4).contiguous()
+
+
+def _fq6_frob_coeffs(x, power: int):
+    """The Frobenius map's constant products on an Fq6 whose Fq2
+    coefficients are already raised to q^power."""
+    c1t, c2t, _ = _frob_consts(str(x.device))
+    return pack6(c6(x, 0), fq2_mul(c6(x, 1), c1t[power % 6]), fq2_mul(c6(x, 2), c2t[power % 6]))
 
 
 def fq6_frob(a, power: int):
     """(src/fields/fq6.rs:75-81)"""
-    c1t, c2t, _ = _frob_consts(str(a.device))
-    x0 = fq2_frob(c6(a, 0), power)
-    x1 = fq2_mul(fq2_frob(c6(a, 1), power), c1t[power % 6])
-    x2 = fq2_mul(fq2_frob(c6(a, 2), power), c2t[power % 6])
-    return pack6(x0, x1, x2)
+    return _fq6_frob_coeffs(fq2_frob(a, power), power)
 
 
 # ---------------------------------------------------------------------------
@@ -239,28 +265,35 @@ def fq12_sq(a):
     return tc.fq12_sq(a, P.Q)
 
 
+# p0 - v p1 for Fq6 elements p0, p1, v p1 = (xi p1_2, p1_0, p1_1), from the
+# sources p0_0 p0_1 p0_2, xi(p1_2), p1_0, p1_1
+FQ6_SUB_NONRESIDUE = (((0, 1), (3, -1)), ((1, 1), (4, -1)), ((2, 1), (5, -1)))
+
+
 def fq12_inv(a):
-    """(src/fields/fq12.rs:284-292)"""
-    a0, a1 = c12(a, 0), c12(a, 1)
-    both = torch.stack([a0, a1])
+    """(src/fields/fq12.rs:284-292): t = (a0^2 - v a1^2)^-1, a^-1 = (a0 t, -a1 t)."""
+    both = a.movedim(-5, 0)  # (a0, a1) stacked, a view
     p = fq6_mul(both, both)
-    t = fq6_inv(sub(p[0], fq6_mul_by_nonresidue(p[1])))
-    p = fq6_mul(both, t[None])
-    return pack12(p[0], neg(p[1]))
+    d = p.new_empty(p.shape[1:])
+    srcs = [c6(p[0], i) for i in range(3)] + [fq2_mul_by_xi(c6(p[1], 2)), c6(p[1], 0), c6(p[1], 1)]
+    mc.mod_signed_sum(FQ6_SUB_NONRESIDUE, srcs, P.Q, out=d.movedim(-4, 0))
+    p = fq6_mul(both, fq6_inv(d)[None])
+    return _negate_second(p[0], p[1], -5)
 
 
 def fq12_conj(a):
-    """Unitary inverse (src/fields/fq12.rs:103-105)."""
-    return pack12(c12(a, 0), neg(c12(a, 1)))
+    """Unitary inverse (src/fields/fq12.rs:103-105); one launch."""
+    return _negate_second(c12(a, 0), c12(a, 1), -5)
 
 
 def fq12_frob(a, power: int):
-    """(src/fields/fq12.rs:90-95)"""
+    """(src/fields/fq12.rs:90-95).  For an odd power every Fq2 coefficient
+    is conjugated first, in one launch over the whole element."""
     _, _, c12t = _frob_consts(str(a.device))
-    x0 = fq6_frob(c12(a, 0), power)
-    x1 = fq6_frob(c12(a, 1), power)
+    x = fq2_frob(a, power)
+    x0 = _fq6_frob_coeffs(c12(x, 0), power)
     # scale all three Fq2 components of x1 by the gamma constant
-    x1 = fq2_mul(x1, c12t[power % 12])
+    x1 = fq2_mul(_fq6_frob_coeffs(c12(x, 1), power), c12t[power % 12])
     return pack12(x0, x1)
 
 

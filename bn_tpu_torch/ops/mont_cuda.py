@@ -1,8 +1,8 @@
 """Base-field and Fq2 operations: CUDA kernels with their plain versions.
 
-Counterpart of the JAX package's ops/mont_pallas.py.  Eight functions —
-mont_mul, mod_add, mod_sub, mod_neg, pow_fixed, fq2_mul, fq2_sq, fq2_xi —
-each with
+Counterpart of the JAX package's ops/mont_pallas.py.  Nine functions —
+mont_mul, mod_add, mod_sub, mod_neg, mod_signed_sum, pow_fixed, fq2_mul,
+fq2_sq, fq2_xi — each with
 
  - a wrapper that dispatches on where its operand lies and on nothing else:
    a CPU tensor goes to the plain version, a CUDA tensor to the kernel in
@@ -12,8 +12,12 @@ each with
 Operands are int32 limb tensors (..., 16, B); the Fq2 functions take
 (..., 2, 16, B).  Binary wrappers broadcast their operands against each other
 and materialise the result before a launch (`expand(...).contiguous()`): the
-kernels read dense tensors only.  The modulus is an argument (Fq or Fr) and
-reaches the kernel as eight 32-bit words plus -m^-1 mod 2^32.
+kernels read dense tensors only.  mod_signed_sum, a whole level of sums,
+differences and negations in one launch (mod_sub and mod_neg are its one-
+output cases), reads its sources in place and writes where the caller says:
+any strides between the (16, B) blocks of an element.  The modulus is an
+argument (Fq or Fr) and reaches the kernel as eight 32-bit words plus
+-m^-1 mod 2^32.
 """
 
 from __future__ import annotations
@@ -159,6 +163,198 @@ def mod_neg(a, modulus: int):
     if not _on_card(a):
         return mod_neg_plain(a, modulus)
     return launch("mod_neg", (a,), ((),), modulus)
+
+
+# ---------------------------------------------------------------------------
+# a level of signed sums
+# ---------------------------------------------------------------------------
+
+SUM_MAX_TERMS = 4  # csrc/signed_sum.cuh's bounds
+SUM_MAX_SOURCES = 16
+SUM_MAX_OUTPUTS = 16
+_SUM_ROW_DIMS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_codes(terms):
+    """Check a level's terms and encode them as the kernel reads them: output
+    k's term j is +(i + 1) for +source i, -(i + 1) for -source i, 0 after its
+    last term.  Returns (the codes as a C array, sources the terms name)."""
+    if not 1 <= len(terms) <= SUM_MAX_OUTPUTS:
+        raise ValueError(f"mod_signed_sum: 1 to {SUM_MAX_OUTPUTS} outputs, got {len(terms)}")
+    codes = []
+    for out_terms in terms:
+        if not 1 <= len(out_terms) <= SUM_MAX_TERMS:
+            raise ValueError(f"mod_signed_sum: 1 to {SUM_MAX_TERMS} terms an output, got {out_terms}")
+        for i, sign in out_terms:
+            if sign not in (1, -1) or not 0 <= i < SUM_MAX_SOURCES:
+                raise ValueError(f"mod_signed_sum: a term is (source below {SUM_MAX_SOURCES}, +1 or -1), got {(i, sign)}")
+            codes.append(sign * (i + 1))
+        codes += [0] * (SUM_MAX_TERMS - len(out_terms))
+    return (ctypes.c_int8 * len(codes))(*codes), max(abs(c) for c in codes)
+
+
+def _view(t):
+    """An operand as (tensor, address, shape, strides), each read once."""
+    return t, t.data_ptr(), tuple(t.shape), t.stride()
+
+
+def _dense_tail(v) -> bool:
+    """Limb i of lane b at i*B + b from the element's start."""
+    _, _, shape, stride = v
+    return stride[-2] == shape[-1] and (stride[-1] == 1 or shape[-1] == 1)
+
+
+def _extent(v, is_out):
+    """(first byte, byte after the last, is_out) of the storage v may touch."""
+    _, ptr, shape, stride = v
+    return ptr, ptr + 4 * (sum((n - 1) * s for n, s in zip(shape, stride)) + 1), is_out
+
+
+def _block_extents(v, is_out):
+    """_extent of each (16, B) block of v, for v (..., 16, B)."""
+    _, ptr, shape, stride = v
+    tail = 4 * ((shape[-2] - 1) * stride[-2] + (shape[-1] - 1) * stride[-1] + 1)
+    starts = [ptr]
+    for n, s in zip(shape[:-2], stride[:-2]):
+        if n > 1:
+            starts = [a + 4 * s * i for a in starts for i in range(n)]
+    return [(a, a + tail, is_out) for a in starts]
+
+
+def _overlap(extents) -> bool:
+    """True when an output's range meets another output's or a source's
+    (sources may overlap each other)."""
+    end_any = end_out = 0
+    for lo, hi, is_out in sorted(extents):
+        if lo < (end_any if is_out else end_out):
+            return True
+        end_any = max(end_any, hi)
+        if is_out:
+            end_out = max(end_out, hi)
+    return False
+
+
+def _self_overlapping(v) -> bool:
+    """True unless v's strides put every element at its own address (checked
+    axis by axis from the smallest stride: conservative)."""
+    _, _, shape, stride = v
+    reach = 0  # the largest offset the smaller strides reach
+    for s, n in sorted((s, n) for n, s in zip(shape, stride) if n > 1):
+        if s <= reach:
+            return True
+        reach += s * (n - 1)
+    return False
+
+
+def _sum_setup(terms, sources, out):
+    """Check a level and resolve its outputs: (codes, the sources brought to
+    one shape, the outputs, as _view records, and what the call returns)."""
+    codes, named = _sum_codes(terms)
+    sources = broadcast(*sources)
+    if not named <= len(sources) <= SUM_MAX_SOURCES:
+        raise ValueError(f"mod_signed_sum: the terms name {named} sources, {len(sources)} given (at most {SUM_MAX_SOURCES})")
+    srcs = [_view(t) for t in sources]
+    shape = srcs[0][2]
+    if len(shape) < 2 or shape[-2] != P.NLIMBS or any(t.dtype != torch.int32 for t in sources):
+        raise ValueError(f"mod_signed_sum: sources are int32 (..., {P.NLIMBS}, B), got {shape} {sources[0].dtype}")
+    if out is None:
+        result = torch.empty((len(terms),) + shape, dtype=torch.int32, device=sources[0].device)
+        return codes, srcs, [_view(o) for o in result.unbind(0)], result
+    outs = [_view(o) for o in (out.unbind(0) if isinstance(out, torch.Tensor) else out)]
+    if len(outs) != len(terms):
+        raise ValueError(f"mod_signed_sum: {len(terms)} outputs, {len(outs)} destinations")
+    for v in outs:
+        o = v[0]
+        if o.dtype != torch.int32 or v[2] != shape or o.device != sources[0].device:
+            raise ValueError(f"mod_signed_sum: destination {v[2]} {o.dtype} on {o.device}, expected {shape} torch.int32 on {sources[0].device}")
+        if not _dense_tail(v) or _self_overlapping(v):
+            raise ValueError("mod_signed_sum: a destination needs a dense (16, B) block an element and its own address for every element")
+    ops = [(v, True) for v in outs] + [(v, False) for v in srcs]
+    extents = [_extent(v, is_out) for v, is_out in ops]
+    if _overlap(extents):  # ranges meet: compare the (16, B) blocks of the operands whose ranges meet
+
+        def meets(k):  # an output: any other operand; a source: any output
+            lo, hi, _ = extents[k]
+            others = extents if k < len(outs) else extents[: len(outs)]
+            return any(j != k and l < hi and lo < h for j, (l, h, _) in enumerate(others))
+
+        blocks = [b for k, (v, is_out) in enumerate(ops) if meets(k) for b in _block_extents(v, is_out)]
+        if _overlap(blocks):
+            raise ValueError("mod_signed_sum: a destination overlaps a source or another destination")
+    return codes, srcs, outs, out
+
+
+def _sum_operands(ops, rows):
+    """(n1, n2, descriptors) of operands (*rows, 16, B), _view records: the
+    row axes merged where every operand allows it, at most three left, r2
+    the fastest; each operand as its address and the element strides of r0,
+    r1, r2."""
+    dims = []  # [extent, the operands' strides], fastest first
+    for d in range(len(rows) - 1, -1, -1):
+        if rows[d] == 1:
+            continue
+        st = [v[3][d] for v in ops]
+        if dims and all(x == y * dims[-1][0] for x, y in zip(st, dims[-1][1])):
+            dims[-1][0] *= rows[d]
+        else:
+            dims.append([rows[d], st])
+    if len(dims) > _SUM_ROW_DIMS:
+        raise ValueError(f"mod_signed_sum: the operands' rows need {len(dims)} strides, the kernel takes {_SUM_ROW_DIMS}")
+    dims += [[1, [0] * len(ops)]] * (_SUM_ROW_DIMS - len(dims))
+    (n2, s2), (n1, s1), (_, s0) = dims
+    words = [w for i, v in enumerate(ops) for w in (v[1], s0[i], s1[i], s2[i])]
+    return n1, n2, (ctypes.c_longlong * len(words))(*words)
+
+
+def _signed_sum_plain_into(terms, srcs, outs, modulus: int):
+    m = _m_limbs(modulus)
+    for (o, *_), ((i, sign), *rest) in zip(outs, terms):
+        acc = srcs[i][0] if sign > 0 else lb.mod_neg(srcs[i][0], m)
+        for i, sign in rest:
+            acc = (lb.mod_add if sign > 0 else lb.mod_sub)(acc, srcs[i][0], m)
+        o.copy_(acc)
+
+
+def mod_signed_sum_plain(terms, sources, modulus: int, out=None):
+    """mod_signed_sum's plain version: ops/limbs.py's mod_neg, mod_add and
+    mod_sub term by term."""
+    _, srcs, outs, result = _sum_setup(terms, sources, out)
+    _signed_sum_plain_into(terms, srcs, outs, modulus)
+    return result
+
+
+def mod_signed_sum(terms, sources, modulus: int, out=None):
+    """A level of signed sums in one launch: output k is
+    sum_j sign_kj * sources[i_kj] mod m for its terms ((i_kj, sign_kj), ...)
+    in terms[k], sign +1 or -1, a first term of -1 a negation, a lone +1 a
+    copy.  Up to 16 outputs of up to 4 terms each, over up to 16 sources.
+    `terms` is a tuple of tuples of pairs (the encoding is cached on it).
+
+    The sources broadcast to one shape S = (..., 16, B) and are read in place
+    (any strides between (16, B) blocks).  The result is a new (K, *S) tensor
+    for K outputs, or is written where `out` says: a (K, *S) tensor or K
+    tensors of shape S, views into the caller's tensors (a slice of the
+    stacked or packed tensor the result's consumer reads), each with a dense
+    (16, B) block an element.  A destination may not overlap a source or
+    another destination (their storage ranges, then their blocks, are
+    compared); the call returns `out`.  Every result is the canonical
+    residue, so the order of the terms changes no bit."""
+    codes, srcs, outs, result = _sum_setup(terms, sources, out)
+    if not _on_card(*(v[0] for v in srcs), *(v[0] for v in outs)):
+        _signed_sum_plain_into(terms, srcs, outs, modulus)
+        return result
+    srcs = [v if _dense_tail(v) else _view(v[0].contiguous()) for v in srcs]
+    shape = srcs[0][2]
+    rows = 1
+    for d in shape[:-2]:
+        rows *= d
+    if rows * shape[-1]:
+        n1, n2, desc = _sum_operands(srcs + outs, shape[:-2])
+        words, inv32 = _mod_args(modulus)
+        build.launch("mod_signed_sum", srcs[0][0].device, desc, codes, len(srcs), len(outs), n1, n2,
+                     rows, shape[-1], words, inv32)
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from .mont_cuda import (
     fq2_mul_plain,
     fq2_xi_plain,
     launch,
+    mod_signed_sum_plain,
 )
 
 _FQ12 = (2, 3, 2)
@@ -74,6 +75,7 @@ class PlainField:
         # axes would otherwise be aligned against
         self.fq2_mul = lambda a, b: fq2_mul_plain(*broadcast(a, b), modulus)
         self.fq2_xi = lambda a: fq2_xi_plain(a, modulus)
+        self.signed_sum = lambda terms, sources, out=None: mod_signed_sum_plain(terms, sources, modulus, out)
 
 
 _plain_field = functools.lru_cache(maxsize=None)(PlainField)
@@ -84,17 +86,40 @@ def fq6_nr(F, a):
     return _pack6(F.fq2_xi(_c6(a, 2)), _c6(a, 0), _c6(a, 1))
 
 
+# fq6_mul's three levels of signed sums (F.signed_sum, one launch each on the
+# card).  The operands' level reads a0 a1 a2 b0 b1 b2 and writes both stacked
+# operands of the six Fq2 products; the first level after the products reads
+# aa bb cc t12 t01 t02 and writes xi's operand (t12 - bb - cc, cc), then
+# t01 - aa - bb and r2; the last reads xi's two results, aa and t01 - aa - bb.
+FQ6_MUL_OPERANDS = (
+    ((0, 1),), ((1, 1),), ((2, 1),), ((1, 1), (2, 1)), ((0, 1), (1, 1)), ((0, 1), (2, 1)),
+    ((3, 1),), ((4, 1),), ((5, 1),), ((4, 1), (5, 1)), ((3, 1), (4, 1)), ((3, 1), (5, 1)),
+)
+FQ6_MUL_DIFFERENCES = (
+    ((3, 1), (1, -1), (2, -1)),  # t12 - bb - cc
+    ((2, 1),),  # cc
+    ((4, 1), (0, -1), (1, -1)),  # t01 - aa - bb
+    ((5, 1), (0, -1), (1, 1), (2, -1)),  # r2 = t02 - aa + bb - cc
+)
+FQ6_MUL_RESULTS = (
+    ((0, 1), (2, 1)),  # r0 = xi(t12 - bb - cc) + aa
+    ((3, 1), (1, 1)),  # r1 = t01 - aa - bb + xi(cc)
+)
+
+
 def fq6_mul(F, a, b):
-    """Karatsuba: 6 Fq2 products in one stacked call."""
-    a0, a1, a2 = (_c6(a, i) for i in range(3))
-    b0, b1, b2 = (_c6(b, i) for i in range(3))
-    lhs = torch.stack([a0, a1, a2, F.add(a1, a2), F.add(a0, a1), F.add(a0, a2)])
-    rhs = torch.stack([b0, b1, b2, F.add(b1, b2), F.add(b0, b1), F.add(b0, b2)])
-    aa, bb, cc, t12, t01, t02 = F.fq2_mul(lhs, rhs)
-    r0 = F.add(F.fq2_xi(F.sub(F.sub(t12, bb), cc)), aa)
-    r1 = F.add(F.sub(F.sub(t01, aa), bb), F.fq2_xi(cc))
-    r2 = F.sub(F.add(F.sub(t02, aa), bb), cc)
-    return _pack6(r0, r1, r2)
+    """Karatsuba (src/fields/fq6.rs:144-158): 6 Fq2 products in one stacked
+    call, between three levels of signed sums and one stacked xi product."""
+    srcs = [_c6(a, i) for i in range(3)] + [_c6(b, i) for i in range(3)]
+    operands = F.signed_sum(FQ6_MUL_OPERANDS, srcs)
+    prods = F.fq2_mul(operands[:6], operands[6:])  # aa bb cc t12 t01 t02
+    shape = prods.shape[1:]
+    out = prods.new_empty(shape[:-3] + (3,) + shape[-3:])
+    u = prods.new_empty((3,) + shape)
+    F.signed_sum(FQ6_MUL_DIFFERENCES, prods, out=(u[0], u[1], u[2], _c6(out, 2)))
+    xi = F.fq2_xi(u[:2])
+    F.signed_sum(FQ6_MUL_RESULTS, (xi[0], xi[1], prods[0], u[2]), out=(_c6(out, 0), _c6(out, 1)))
+    return out
 
 
 # ---------------------------------------------------------------------------

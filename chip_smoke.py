@@ -42,19 +42,27 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     rows give the block of their launch at the
     timed shape (threads, elements) and the loaded kernel's static shared
     memory (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5
-    beside n = 2;
+    beside n = 2.  mod_sub and mod_neg are the two- and one-term cases of
+    k_signed_sum; `mod_signed_sum` launches it on a whole level of signed
+    sums, and each level the main path runs (SUM_LEVELS: conjugations,
+    fq6_mul's three levels, fq6_inv's two, fq12_inv's difference, the twisted
+    bases' conjugates) is held against the plain signed sum at a ragged batch
+    of 1000, lead 3, for both moduli, and at the main path's shape, where it
+    is timed (its row: `levels`); and on the edge pairs as the halves of a
+    lead-3 Fq12, also against Python's integers;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
-    read just after it; each of the pairing's fifteen kernels must have been
+    read just after it; each of the pairing's fourteen kernels must have been
     launched, neither curve kernel nor `fq12_mul024` nor `miller_step`,
     `pow_fixed` 3, `fq12_cyclo_sq_chain` 69, `double_step` 64 and
-    `madd_step` 38 times.
+    `madd_step` 38 times, and the sums SUM_LAUNCHES times (`mod_add` 4,
+    `mod_signed_sum` 26, `mod_sub` and `mod_neg` alone never).
     Lanes 0, 1, B/2 and B-1 must equal the pure-Python oracle bit for bit,
     the two lanes with an infinite input must give Gt one, and the
     bilinearity pair e(sP, Q) = e(P, sQ) must agree;
  5. drives the unfused path (every fusion off) on the first 1024 lanes of the
-    same inputs: it must launch each of the eleven unfused kernels and none
+    same inputs: it must launch each of the ten unfused kernels and none
     of the four fused ones, and return the fused run's lanes bit for bit;
     likewise the precompute alone, whole tensor;
  6. times both paths at B = 8192 in turns, three runs each;
@@ -161,7 +169,37 @@ TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12
                 "double_step", "madd_step", "pow_fixed", "fq12_mul024", "miller_step")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
-PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS)  # the fifteen pairing_batch launches
+# mod_sub and mod_neg are the two- and one-term cases of k_signed_sum: the
+# fused path runs its levels through mod_signed_sum and calls neither alone
+SUM_SINGLE_OPS = ("mod_sub", "mod_neg")
+# the fourteen kernels pairing_batch launches
+PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS + SUM_SINGLE_OPS) + ("mod_signed_sum",)
+# launches of the sums in one fused pairing_batch: fq2_inv (twice) and
+# fq6_inv's norm add alone; every other sum, difference, negation and
+# conjugation is one mod_signed_sum launch a level (fq12_conj 10, fq12_inv 11,
+# to_affine's fq2_inv 1, the odd Frobenius maps 2, the twisted bases 2)
+SUM_LAUNCHES = {"mod_add": 4, "mod_sub": 0, "mod_neg": 0, "mod_signed_sum": 26}
+# mod_signed_sum's levels on the main path, with the leading axes they have
+# there at B = 8192 (fq12_inv's Fq6 products run on the pair (a0, a1))
+SUM_LEVELS = {
+    "fq12_conj": (),  # the halves of an Fq12: fq12_conj, fq12_inv's result
+    "fq2_conj_fq12": (),  # every Fq2 coefficient of an Fq12: the odd Frobenius maps
+    "fq2_conj": (),  # fq2_inv's result
+    "fq6_mul_operands": (2,),
+    "fq6_mul_operands_broadcast": (2,),  # fq6_mul(both, t[None])
+    "fq6_mul_differences": (2,),
+    "fq6_mul_results": (2,),
+    "fq6_inv_operands": (),
+    "fq6_inv_norm_factors": (),
+    "fq6_sub_nonresidue": (),  # fq12_inv's p0 - v p1
+    "mul_by_q_conj": (),
+    "mul_by_q_conj_negated": (),
+}
+SUM_ROW_LEVEL = "fq6_mul_operands"  # the largest level: the row's own time and bound
+# the edge pairs' level: x - y, -x, x + y, y - x - x - y from the halves of a
+# lead-3 Fq12 into the halves of two others
+EDGE_SUM_TERMS = (((0, 1), (1, -1)), ((0, -1),), ((0, 1), (1, 1)), ((1, 1), (0, -1), (0, -1), (1, -1)))
+EDGE_SUM_VALUES = (lambda x, y: x - y, lambda x, y: -x, lambda x, y: x + y, lambda x, y: -2 * x)
 MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
 LOG2_MSM = 20  # the MSM's size: 2^20 points
 MSM_C = 16  # its window
@@ -170,8 +208,8 @@ FUSED_KERNELS = {"pow_fixed": 3, "fq12_cyclo_sq_chain": 69, "double_step": 64, "
 UNFUSED = dict(pow_fixed=False, cyclo_chain=False, ladder=False)
 # mangled-name fragments of the __global__ functions, to read `ptxas -v`
 PTXAS_NAMES = {
-    "mont_mul": "8k_binaryILi0E", "mod_add": "8k_binaryILi1E", "mod_sub": "8k_binaryILi2E",
-    "mod_neg": "5k_neg", "fq2_mul": "9k_fq2_mul", "fq2_sq": "11k_fq2_unaryILi0E",
+    "mont_mul": "8k_binaryILi0E", "mod_add": "8k_binaryILi1E", "mod_sub": "12k_signed_sumI8SumDenseILi1ELin2EEE",
+    "mod_neg": "12k_signed_sumI8SumDenseILin1ELi0EEE", "mod_signed_sum": "12k_signed_sumI8SumTableE", "fq2_mul": "9k_fq2_mul", "fq2_sq": "11k_fq2_unaryILi0E",
     "fq2_xi": "11k_fq2_unaryILi1E", "fq12_mul": "10k_fq12_mul", "fq12_sq": "9k_fq12_sq",
     "fq12_mul024_pre": "17k_fq12_mul024_pre", "fq12_cyclo_sq": "15k_fq12_cyclo_sq",
     "pow_fixed": "11k_pow_fixed", "fq12_cyclo_sq_chain": "21k_fq12_cyclo_sq_chain",
@@ -578,6 +616,156 @@ def main():
             })
         kernel_rows.append(row)
 
+    # mod_signed_sum: each of the main path's levels, its sources read and its
+    # results written in place, against the plain signed sum
+    def sum_level(name, lead, batch, modulus, specials):
+        """(terms, sources, make_out) of a main-path level on the card, the
+        operands laid out as its caller lays them out; make_out() gives (the
+        out argument, the outputs as read back), both None for a new result."""
+        def fe(*struct):
+            return rand_field(rng, tuple(lead) + struct, batch, modulus, specials)
+
+        def fresh(shape, axis):
+            """A new destination, its outputs the slices along `axis`."""
+            def make():
+                t = torch.full(shape, -1, dtype=torch.int32, device=dev).movedim(axis, 0)
+                return t, list(t)
+            return make
+
+        none = lambda: (None, None)  # noqa: E731
+        if name in ("fq12_conj", "fq2_conj_fq12", "fq2_conj"):
+            a = fe(2, 3, 2) if name != "fq2_conj" else fe(2)
+            axis = -5 if name == "fq12_conj" else -3
+            return tower.CONJ, [a.select(axis, 0), a.select(axis, 1)], fresh(a.shape, axis)
+        if name.startswith("fq6_mul_operands"):
+            a, b = fe(3, 2), (rand_field(rng, (1, 3, 2), batch, modulus, specials) if name.endswith("broadcast") else fe(3, 2))
+            return tc.FQ6_MUL_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [b[..., i, :, :, :] for i in range(3)], none
+        if name == "fq6_mul_differences":
+            prods = rand_field(rng, (6,) + tuple(lead) + (2,), batch, modulus, specials)
+
+            def make():
+                u = torch.full((3,) + tuple(lead) + (2, 16, batch), -1, dtype=torch.int32, device=dev)
+                packed = torch.full(tuple(lead) + (3, 2, 16, batch), -1, dtype=torch.int32, device=dev)
+                outs = [u[0], u[1], u[2], packed[..., 2, :, :, :]]
+                return outs, outs
+            return tc.FQ6_MUL_DIFFERENCES, list(prods), make
+        if name == "fq6_mul_results":
+            srcs = rand_field(rng, (4,) + tuple(lead) + (2,), batch, modulus, specials)
+
+            def make():
+                packed = torch.full(tuple(lead) + (3, 2, 16, batch), -1, dtype=torch.int32, device=dev)
+                outs = [packed[..., 0, :, :, :], packed[..., 1, :, :, :]]
+                return outs, outs
+            return tc.FQ6_MUL_RESULTS, list(srcs), make
+        if name == "fq6_inv_operands":
+            a = fe(3, 2)
+            return tower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [fe(2)], none
+        if name == "fq6_inv_norm_factors":
+            return tower.FQ6_INV_NORM_FACTORS, list(rand_field(rng, (7,) + tuple(lead) + (2,), batch, modulus, specials)), none
+        if name == "fq6_sub_nonresidue":
+            p2 = rand_field(rng, (2,) + tuple(lead) + (3, 2), batch, modulus, specials)
+            srcs = [p2[0, ..., i, :, :, :] for i in range(3)] + [fe(2), p2[1, ..., 0, :, :, :], p2[1, ..., 1, :, :, :]]
+            return tower.FQ6_SUB_NONRESIDUE, srcs, fresh(tuple(lead) + (3, 2, 16, batch), -4)
+        if name.startswith("mul_by_q_conj"):
+            x, y = fe(2), fe(2)
+
+            def make():
+                conj = torch.full((2,) + tuple(lead) + (2, 16, batch), -1, dtype=torch.int32, device=dev)
+                outs = [conj[k][..., c, :, :] for k in range(2) for c in range(2)]
+                return outs, outs
+            terms = ate.CONJ_X_NEG_Y if name.endswith("negated") else ate.CONJ_XY
+            return terms, [x[..., 0, :, :], x[..., 1, :, :], y[..., 0, :, :], y[..., 1, :, :]], make
+        raise KeyError(name)
+
+    def sum_call(terms, srcs, make, modulus, plain=False):
+        """The outputs of one call of the level, kernel or plain version."""
+        out, views = make()
+        fn = mc.mod_signed_sum_plain if plain else mc.mod_signed_sum
+        res = fn(terms, srcs, modulus, out=out)
+        return tuple(views if views is not None else res)
+
+    def unique_elements(t):
+        return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+    def signed_sum_row():
+        """The mod_signed_sum checks and timings; its kernels line row.  The
+        levels' tensors at B = 8192 are freed on return, before the main path
+        runs and its peak memory is read."""
+        build.reset_counts()
+        sum_calls, sum_err, sum_patterns, timed_levels = 0, 0, {}, {}
+        for name, main_lead in SUM_LEVELS.items():
+            # (a) a ragged batch with the edge values at lead 3, both moduli
+            for modulus in (P.Q, P.R_SCALAR):
+                terms, srcs, make = sum_level(name, (3,), B_RAGGED, modulus, specials=True)
+                got = sum_call(terms, srcs, make, modulus)
+                torch.cuda.synchronize()
+                sum_calls += 1
+                sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, modulus, plain=True),
+                                               f"on level {name} at B={B_RAGGED}, lead 3, modulus {modulus:#x}"))
+            # (b) the main path's shape at B = 8192 (timed below)
+            terms, srcs, make = sum_level(name, main_lead, B_MAIN, P.Q, specials=False)
+            got = sum_call(terms, srcs, make, P.Q)
+            torch.cuda.synchronize()
+            sum_calls += 1
+            sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, P.Q, plain=True),
+                                           f"on level {name} at the main path's shape"))
+            timed_levels[name] = (terms, srcs, make, got)
+        # (c) the carry and borrow edge pairs as the halves of a lead-3 Fq12, both
+        #     moduli, against the plain version and Python's integers
+        for modulus in (P.Q, P.R_SCALAR):
+            pairs = list(edge_pairs(modulus, P.R_MONT))
+            lanes = -(-len(pairs) // 18)
+            pairs += [(0, 0)] * (18 * lanes - len(pairs))
+            halves = [np.moveaxis(P.ints_to_limbs([pr[h] for pr in pairs]).reshape(16, 3, 3, 2, lanes), 0, -2)
+                      for h in range(2)]
+            a = torch.from_numpy(np.ascontiguousarray(np.stack(halves, axis=1).astype(np.int32))).to(dev)
+            srcs = [a.select(-5, 0), a.select(-5, 1)]
+
+            def make_edge(shape=a.shape):
+                outs = [torch.full(shape, -1, dtype=torch.int32, device=dev) for _ in range(2)]
+                views = [o.select(-5, h) for o in outs for h in range(2)]
+                return views, views
+            got = sum_call(EDGE_SUM_TERMS, srcs, make_edge, modulus)
+            torch.cuda.synchronize()
+            sum_calls += 1
+            sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(EDGE_SUM_TERMS, srcs, make_edge, modulus, plain=True),
+                                           f"on {len(pairs)} edge pairs, modulus {modulus:#x}"))
+            for k, value in enumerate(EDGE_SUM_VALUES):
+                lanes_k = np.moveaxis(got[k].cpu().numpy(), -2, 0).reshape(16, -1)
+                if P.limbs_to_ints(lanes_k) != [value(x, y) % modulus for x, y in pairs]:
+                    fail(f"mod_signed_sum differs from Python's integers on the edge pairs, output {k}, modulus {modulus:#x}")
+        if build.COUNTS["mod_signed_sum"] != sum_calls:
+            fail(f"wrapper mod_signed_sum counted {build.COUNTS['mod_signed_sum']} launches for {sum_calls} calls")
+        # each level at the main path's shape: card time, eager time, plain time, bound
+        for name, (terms, srcs, make, got) in timed_levels.items():
+            read = {i for out_terms in terms for i, _ in out_terms}
+            n_bytes = 4 * (sum(unique_elements(srcs[i]) for i in read) + sum(t.numel() for t in got))
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            word_ops = sum(len(t) for t in terms) * 16 * got[0].numel() // P.NLIMBS  # add or subtract, then reduce
+            ops_ms = word_ops / madd_per_s * 1e3
+            out_arg, _ = make()
+            sum_patterns[name] = {
+                "outputs": len(terms), "terms": sum(len(t) for t in terms), "sources": len(srcs),
+                "source_shape": list(srcs[0].shape), "lead": list(SUM_LEVELS[name]),
+                "ms": device_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg), 50),
+                "wrapper_ms": timed_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg), 50),
+                "plain_ms": timed_ms(lambda: sum_call(terms, srcs, make, P.Q, plain=True), 3),
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": n_bytes, "launch_floor_ms": launch_floor_ms(
+                    len(terms) * math.prod(srcs[0].shape[:-2]) * math.ceil(B_MAIN / 128)),
+            }
+        headline = sum_patterns[SUM_ROW_LEVEL]
+        return {
+            "name": "mod_signed_sum", "route": "cuda", "source": "bn_tpu_torch/csrc/kernels_fq.cu",
+            "replaces": "bn_tpu/ops/mont_pallas.py:375 (mod_sub_pallas) and :379 (mod_neg_pallas), a level at a time",
+            "launches": None, "max_abs_err": sum_err, "equal": True,
+            **{k: headline[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "launch_floor_ms")},
+            "library_ms": None, "shape": headline["source_shape"], "static": SUM_ROW_LEVEL, "levels": sum_patterns,
+            **{k: (ptxas["mod_signed_sum"] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
+        }
+
+    kernel_rows.append(signed_sum_row())
+
     # the two curve kernels, G1 and G2: coordinates are separate tensors, and
     # the batch must hold the degenerate pairs of the group law
     def with_degenerate_lanes(spec, pp, qq):
@@ -729,6 +917,8 @@ def main():
         fail(f"pairing_batch launched a curve kernel, fq12_mul024 or miller_step: {counts}")
     if {k: counts[k] for k in FUSED_KERNELS} != FUSED_KERNELS:
         fail(f"the fused path launched {({k: counts[k] for k in FUSED_KERNELS})}, expected {FUSED_KERNELS}")
+    if {k: counts[k] for k in SUM_LAUNCHES} != SUM_LAUNCHES:
+        fail(f"the fused path's sums launched {({k: counts[k] for k in SUM_LAUNCHES})}, expected {SUM_LAUNCHES}")
 
     if tuple(out.shape) != (2, 3, 2, 16, B) or out.dtype != torch.int32 or out.device.type != "cuda":
         fail(f"pairing_batch returned {tuple(out.shape)} {out.dtype} on {out.device}")
@@ -746,7 +936,8 @@ def main():
     if special[2] != special[3] or special[2] == O.FQ12_ONE:
         fail("bilinearity: e(sP, Q) != e(P, sQ)")
     emit({"phase": "main_path", "configuration": "fused", "batch": B, "launches": counts,
-          "launches_total": sum(counts.values()), "oracle_lanes": sample,
+          "launches_total": sum(counts.values()), "sum_launches": sum(counts[k] for k in SUM_LAUNCHES),
+          "oracle_lanes": sample,
           "infinity_lanes": [lane_g1_inf, lane_g2_inf], "bilinearity_lanes": [lane_sp, lane_sq]})
 
     # ---- phase 5: the unfused path on the first lanes of the same inputs ------
@@ -770,7 +961,8 @@ def main():
     if tuple(coeffs_fused.shape) != (102, 3, 2, 16, B_UNFUSED) or not torch.equal(coeffs_fused, coeffs_unfused):
         fail("the fused precompute differs from the unfused one")
     emit({"phase": "unfused_path", "batch": B_UNFUSED, "launches": counts_unfused,
-          "launches_total": sum(counts_unfused.values()), "equals_fused_lanes": True,
+          "launches_total": sum(counts_unfused.values()),
+          "sum_launches": sum(counts_unfused[k] for k in SUM_LAUNCHES), "equals_fused_lanes": True,
           "precompute_equals_fused": True})
 
     # ---- phase 6: both paths timed in turns -----------------------------------
@@ -863,6 +1055,7 @@ def main():
         if not torch.equal(got_sq, want_sq):
             fail(f"{what} differs from the fq12_sq team on the cyclotomic easy part")
     emit({"phase": "miller_path", "batch": B, "launches": counts_miller, "launches_total": sum(counts_miller.values()),
+          "sum_launches": sum(counts_miller[k] for k in SUM_LAUNCHES),
           "miller_step_instances": instances, "equals_main_path_lanes": B,
           "ms_runs": miller_times,
           "ms": {c_: {k_: statistics.median(v) for k_, v in t_.items()} for c_, t_ in miller_times.items()},

@@ -1,9 +1,13 @@
 """Seeded numpy inputs shared by the tests of the PyTorch port."""
 
 import numpy as np
+import torch
 
+from bn_tpu_torch import ate
 from bn_tpu_torch import oracle as TO
 from bn_tpu_torch import params as TP
+from bn_tpu_torch.fields import tower as ttower
+from bn_tpu_torch.ops import tower_cuda as tc
 
 def SPECIALS_FOR(m):
     return [0, 1, m - 1, TP.R_MONT % m]
@@ -68,3 +72,83 @@ def curve_points(group: str, seed: int, shape):
     return tuple(
         tuple(_coord_array(group, [pt[k] for pt in pts], shape) for k in range(3)) for pts in (ps, qs)
     )
+
+
+# mod_signed_sum's cases: the levels the main path runs, at B = 6 and lead 3
+SUM_B, SUM_LEAD = 6, 3
+
+
+def sum_values(seed, shape, modulus):
+    """(*shape[:-1], 16, SUM_B) int32 limbs: seeded values below m, the last
+    three lanes of every row 0, 1, m - 1 in an order the seed rotates."""
+    rng = np.random.default_rng(seed)
+    rows = int(np.prod(shape[:-1], dtype=np.int64))
+    edges = [0, 1, modulus - 1]
+    vals = []
+    for r in range(rows):
+        row = [int.from_bytes(rng.bytes(40), "big") % modulus for _ in range(SUM_B - 3)]
+        vals += row + [edges[(j + r + seed) % 3] for j in range(3)]
+    limbs = TP.ints_to_limbs(vals).reshape(16, rows, SUM_B)
+    return torch.from_numpy(np.moveaxis(limbs, 0, 1).reshape(tuple(shape[:-1]) + (16, SUM_B)).astype(np.int32))
+
+
+def _poisoned(shape):
+    """A destination filled with a pattern that is no field element."""
+    return torch.full(shape, -1, dtype=torch.int32)
+
+
+def signed_sum_case(name, modulus):
+    """(terms, sources, out argument or None, the outputs as read back or None:
+    the result then) of case `name` of SIGNED_SUM_CASES."""
+    if name == "negation":
+        (x,) = [sum_values(1, (SUM_LEAD, 2, SUM_B), modulus)]
+        return (((0, -1),),), [x], None, None
+    if name == "difference":
+        x, y = (sum_values(s, (SUM_LEAD, 2, SUM_B), modulus) for s in (2, 3))
+        return (((0, 1), (1, -1)),), [x, y], None, None
+    if name == "repeated-source":
+        x, y = (sum_values(s, (SUM_LEAD, SUM_B), modulus) for s in (4, 5))
+        terms = (((0, 1), (0, 1), (0, -1), (1, 1)), ((0, -1), (0, -1)), ((1, -1), (0, 1), (1, -1), (1, 1)), ((1, 1),))
+        return terms, [x, y], None, None
+    if name in ("conj-fq2-axis", "conj-fq12-halves"):
+        a = sum_values(6, (SUM_LEAD, 2, 3, 2, SUM_B), modulus)
+        axis = -3 if name == "conj-fq2-axis" else -5
+        out = _poisoned(a.shape)
+        return ttower.CONJ, [a.select(axis, 0), a.select(axis, 1)], out.movedim(axis, 0), list(out.movedim(axis, 0))
+    if name in ("fq6_mul-operands", "fq6_mul-operands-broadcast"):
+        a = sum_values(7, (SUM_LEAD, 3, 2, SUM_B), modulus)
+        b = sum_values(8, ((1 if name.endswith("broadcast") else SUM_LEAD), 3, 2, SUM_B), modulus)
+        return tc.FQ6_MUL_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [b[..., i, :, :, :] for i in range(3)], None, None
+    if name == "fq6_mul-differences":
+        prods = sum_values(9, (6, SUM_LEAD, 2, SUM_B), modulus)
+        packed, u = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B)), _poisoned((3, SUM_LEAD, 2, 16, SUM_B))
+        outs = [u[0], u[1], u[2], packed[..., 2, :, :, :]]
+        return tc.FQ6_MUL_DIFFERENCES, list(prods), outs, outs
+    if name == "fq6_mul-results":
+        srcs = sum_values(10, (4, SUM_LEAD, 2, SUM_B), modulus)
+        packed = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B))
+        outs = [packed[..., 0, :, :, :], packed[..., 1, :, :, :]]
+        return tc.FQ6_MUL_RESULTS, list(srcs), outs, outs
+    if name == "fq6_inv-operands":
+        a = sum_values(11, (SUM_LEAD, 3, 2, SUM_B), modulus)
+        return ttower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [sum_values(12, (SUM_LEAD, 2, SUM_B), modulus)], None, None
+    if name == "fq6_inv-norm-factors":
+        return ttower.FQ6_INV_NORM_FACTORS, list(sum_values(13, (7, SUM_LEAD, 2, SUM_B), modulus)), None, None
+    if name == "fq12_inv-nonresidue":
+        p = sum_values(14, (2, SUM_LEAD, 3, 2, SUM_B), modulus)
+        d = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B))
+        srcs = [p[0, ..., i, :, :, :] for i in range(3)] + [sum_values(15, (SUM_LEAD, 2, SUM_B), modulus)]
+        srcs += [p[1, ..., 0, :, :, :], p[1, ..., 1, :, :, :]]
+        return ttower.FQ6_SUB_NONRESIDUE, srcs, d.movedim(-4, 0), list(d.movedim(-4, 0))
+    if name in ("mul_by_q-conj", "mul_by_q-conj-negated"):
+        x, y = (sum_values(s, (SUM_LEAD, 2, SUM_B), modulus) for s in (16, 17))
+        conj = _poisoned((2, SUM_LEAD, 2, 16, SUM_B))
+        outs = [conj[k][..., c, :, :] for k in range(2) for c in range(2)]
+        terms = ate.CONJ_X_NEG_Y if name.endswith("negated") else ate.CONJ_XY
+        return terms, [x[..., 0, :, :], x[..., 1, :, :], y[..., 0, :, :], y[..., 1, :, :]], outs, outs
+    raise KeyError(name)
+
+
+SIGNED_SUM_CASES = ["negation", "difference", "repeated-source", "conj-fq2-axis", "conj-fq12-halves", "fq6_mul-operands",
+                    "fq6_mul-operands-broadcast", "fq6_mul-differences", "fq6_mul-results", "fq6_inv-operands",
+                    "fq6_inv-norm-factors", "fq12_inv-nonresidue", "mul_by_q-conj", "mul_by_q-conj-negated"]

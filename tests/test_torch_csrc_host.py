@@ -47,7 +47,7 @@ from bn_tpu_torch.ops import curve_cuda as cc
 from bn_tpu_torch.ops import mont_cuda as mc
 from bn_tpu_torch.ops import tower_cuda as tc
 
-from _torch_inputs import SPECIALS_FOR, curve_points, rand_field
+from _torch_inputs import SIGNED_SUM_CASES, SPECIALS_FOR, curve_points, rand_field, signed_sum_case
 
 _ROOT = Path(__file__).resolve().parent.parent
 _OPS = [
@@ -110,6 +110,9 @@ def host_lib(tmp_path_factory):
     lib.host_miller_team.restype = ctypes.c_int
     lib.host_carry.argtypes = [ctypes.c_int, ctypes.c_longlong] + [u32p] * 6
     lib.host_carry.restype = ctypes.c_int
+    lib.host_signed_sum.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int8)] + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
+    lib.host_signed_sum.restype = ctypes.c_int
     return lib
 
 
@@ -497,6 +500,64 @@ def test_header_field_op_carry_chains_equal_python(host_lib, modulus, name):
     ins = [_limbs([x for x, _ in pairs]), _limbs([y for _, y in pairs])]
     got = _run_host(host_lib, name, ins[:1] if name == "mod_neg" else ins, modulus)
     assert TP.limbs_to_ints(got[0]) == [_FIELD_OPS[name](x, y, modulus) for x, y in pairs]
+
+
+def _host_signed_sum(lib, terms, sources, modulus, out=None):
+    """signed_sum.cuh's per-thread body over every (output, row, lane), on the
+    table bn_mod_signed_sum would get: the wrapper's own checks and operand
+    descriptors, pointing into the CPU tensors' memory."""
+    codes, srcs, outs, result = mc._sum_setup(terms, sources, out)
+    srcs = [v if mc._dense_tail(v) else mc._view(v[0].contiguous()) for v in srcs]
+    shape = srcs[0][2]
+    n1, n2, desc = mc._sum_operands(srcs + outs, shape[:-2])
+    words, inv32 = mc._mod_args(modulus)
+    rows = int(np.prod(shape[:-2], dtype=np.int64))
+    assert lib.host_signed_sum(desc, codes, len(srcs), len(outs), n1, n2, rows, shape[-1], words, inv32) == 0
+    return result
+
+
+# the edge pairs' level: x - y, -x, x + y, y - x - x - y, from the two halves
+# of a lead-3 Fq12 into the halves of two others
+_EDGE_LEVEL = (((0, 1), (1, -1)), ((0, -1),), ((0, 1), (1, 1)), ((1, 1), (0, -1), (0, -1), (1, -1)))
+_EDGE_VALUES = (lambda x, y: x - y, lambda x, y: -x, lambda x, y: x + y, lambda x, y: -2 * x)
+
+
+def _edge_level_case(modulus):
+    """The carry and borrow edge pairs (_group_mul_pairs, _sum_edge_pairs) as
+    the two halves of a (3, 2, 3, 2, 16, b) Fq12: x in half 0, y in half 1."""
+    a, b = (TP.limbs_to_ints(x[0]) for x in _group_mul_pairs(modulus))
+    pairs = list(zip(a, b)) + _sum_edge_pairs(modulus)
+    lanes = -(-len(pairs) // 18)
+    pairs += [(0, 0)] * (18 * lanes - len(pairs))
+    halves = [TP.ints_to_limbs([p[h] for p in pairs]).reshape(16, 3, 3, 2, lanes) for h in range(2)]
+    fq12 = np.stack([np.moveaxis(x, 0, -2) for x in halves], axis=1)  # (3, 2, 3, 2, 16, lanes)
+    return torch.from_numpy(fq12.astype(np.int32)), pairs
+
+
+@pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
+@pytest.mark.parametrize("case", SIGNED_SUM_CASES + ["edge-pairs"])
+def test_header_signed_sum_equals_plain(host_lib, case, modulus):
+    """k_signed_sum's body (signed_sum.cuh) on the main path's levels at lead
+    3, sources read and results written through the wrappers' row strides
+    (slices of Fq12 and Fq6 elements, stacked operands, packed results), and
+    on the carry and borrow edge pairs as the halves of a lead-3 Fq12 (also
+    against Python's integers): equal to the plain signed sum."""
+    if case == "edge-pairs":
+        a, pairs = _edge_level_case(modulus)
+        outs = [torch.full(a.shape, -1, dtype=torch.int32) for _ in range(2)]
+        terms, sources = _EDGE_LEVEL, [a.select(-5, 0), a.select(-5, 1)]
+        out = [o.select(-5, h) for o in outs for h in range(2)]
+        read = out
+    else:
+        terms, sources, out, read = signed_sum_case(case, modulus)
+    want = mc.mod_signed_sum_plain(terms, sources, modulus)
+    got = _host_signed_sum(host_lib, terms, sources, modulus, out)
+    got = list(got) if read is None else read
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if case == "edge-pairs":
+        for k, value in enumerate(_EDGE_VALUES):
+            lanes = np.moveaxis(got[k].numpy(), -2, 0).reshape(16, -1)
+            assert TP.limbs_to_ints(lanes) == [value(x, y) % modulus for x, y in pairs], k
 
 
 @functools.lru_cache(maxsize=None)

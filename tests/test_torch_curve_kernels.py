@@ -198,7 +198,8 @@ def test_the_width_rule_picks_the_design_by_lanes(name, group):
 
 
 def test_every_kernel_has_a_count_and_a_plain_version():
-    assert len(build.KERNELS) == 19 and {"point_add", "point_double"} <= set(build.COUNTS)
+    # the nineteen TPU kernels' entries and mod_signed_sum, the level of signed sums
+    assert len(build.KERNELS) == 20 and {"point_add", "point_double"} <= set(build.COUNTS)
     assert build.ENTRIES["point_add"][0] == build.ENTRIES["point_double"][0] == "kernels_curve"
     assert "-DBN_MUL_OUT_OF_LINE" in build.SOURCE_FLAGS["kernels_curve"]
     for name in ("point_add", "point_double"):

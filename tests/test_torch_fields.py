@@ -99,6 +99,46 @@ def test_tower_function(name):
     _both(jax_fn, torch_fn, arrays)
 
 
+# Leading batch axes, where the signed sums' levels read slices with a row
+# stride and write into packed results: case -> (the _TOWER_CASES function,
+# lead, whether the last operand is given as x[None] and broadcast)
+_LEAD_CASES = {
+    "fq6_mul-lead2": ("fq6_mul", 2, False),
+    "fq6_mul-lead2-broadcast": ("fq6_mul", 2, True),
+    "fq6_inv-lead3": ("fq6_inv", 3, False),
+    "fq2_inv-lead3": ("fq2_inv", 3, False),
+    "fq12_inv-lead2": ("fq12_inv", 2, False),
+    "fq12_conj-lead3": ("fq12_conj", 3, False),
+    "fq12_frob1-lead2": ("fq12_frob1", 2, False),
+    "fq12_frob3-lead2": ("fq12_frob3", 2, False),
+}
+
+
+def _fold_lead(x):
+    """(lead, ..., 16, b) -> (..., 16, lead * b): the lead axis into the batch."""
+    return np.moveaxis(x, 0, -2).reshape(x.shape[1:-1] + (x.shape[0] * x.shape[-1],))
+
+
+@pytest.mark.parametrize("name", list(_LEAD_CASES))
+def test_tower_function_with_leading_axis(name):
+    """The port at (lead, ..., 16, B / lead) against the JAX function on the
+    same values with the lead folded into the batch: the JAX call has the
+    shapes of test_tower_function's, whose eager compiles it reuses."""
+    base, lead, broadcast_last = _LEAD_CASES[name]
+    jax_fn, torch_fn, structs = _TOWER_CASES[base]
+    arrays = [rand_field(90 + k, (lead,) + st + (B // lead,)) for k, st in enumerate(structs)]
+    if broadcast_last:
+        arrays[-1] = arrays[-1][0]
+    want = np.asarray(jax_fn(*[jnp.asarray(_fold_lead(np.broadcast_to(a, arrays[0].shape[:1] + a.shape[-a.ndim:])
+                                                          if a.ndim < arrays[0].ndim else a)) for a in arrays]))
+    ins = list(convert.from_jax(tuple(arrays), device="cpu"))
+    if broadcast_last:
+        ins[-1] = ins[-1][None]
+    got = torch_fn(*ins)
+    assert got.shape[0] == lead
+    assert np.array_equal(_fold_lead(convert.to_numpy(got)), want)
+
+
 def test_fq2_scale_fq_broadcast_of_the_miller_loop():
     """(n, 2, 2, 16, B) coefficients times a (1, 2, 1, 16, B) G1 pair."""
     coeffs = rand_field(30, (5, 2, 2, B))
@@ -133,6 +173,32 @@ def test_plain_tower_version_is_what_a_cpu_tensor_gets(name):
     build.reset_counts()
     assert torch.equal(getattr(tc, name)(*ins, TP.Q), getattr(tc, name + "_plain")(*ins, TP.Q))
     assert build.COUNTS[name] == 0
+
+
+# wrapper calls of tower functions on the card: one signed-sum launch a level
+_LEVEL_CALLS = {
+    # fq6_mul twice (3 levels each), v-multiple difference, fq6_inv (2 levels
+    # and the norm's 2 sums), fq2_inv (1 sum and the conjugate), the conjugate
+    "fq12_inv": {"mod_add": 3, "mod_signed_sum": 11},
+    "fq12_frob1": {"mod_signed_sum": 1},  # every Fq2 coefficient conjugated at once
+    "fq12_conj": {"mod_signed_sum": 1},
+}
+
+
+@pytest.mark.parametrize("name", list(_LEVEL_CALLS))
+def test_tower_sums_are_one_call_a_level(name, monkeypatch):
+    """The sum wrappers a tower function calls on a B = 2 element: guards the
+    launch count of the card's main path without a pairing run."""
+    calls = {}
+    for op in ("mod_add", "mod_sub", "mod_neg", "mod_signed_sum"):
+        def counted(*args, _op=op, _fn=getattr(mc, op), **kwargs):
+            calls[_op] = calls.get(_op, 0) + 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mc, op, counted)
+    a = convert.from_jax(rand_field(80, FQ12 + (2,)), device="cpu")
+    fn = {"fq12_inv": ttower.fq12_inv, "fq12_frob1": lambda x: ttower.fq12_frob(x, 1), "fq12_conj": ttower.fq12_conj}[name]
+    fn(a)
+    assert calls == _LEVEL_CALLS[name]
 
 
 def test_wrapper_refuses_mixed_or_foreign_devices():

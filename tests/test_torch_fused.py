@@ -191,8 +191,11 @@ def test_switch_chooses_a_path_not_a_result_and_a_cpu_tensor_launches_nothing(fu
 
 
 def test_every_kernel_has_a_count_and_a_plain_version():
-    new = ("pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024", "miller_step")
-    assert len(build.KERNELS) == 19 and set(new) <= set(build.COUNTS)
+    # the nineteen TPU kernels' entries and the level of signed sums, whose
+    # one-output cases are mod_sub and mod_neg
+    new = ("pow_fixed", "fq12_cyclo_sq_chain", "double_step", "madd_step", "fq12_mul024", "miller_step",
+           "mod_signed_sum")
+    assert len(build.KERNELS) == 20 and set(new) <= set(build.COUNTS)
     for name in build.KERNELS:
         module = next(m for m in (mc, tc, cc) if hasattr(m, name))
         assert callable(getattr(module, name)) and callable(getattr(module, name + "_plain"))

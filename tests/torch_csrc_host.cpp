@@ -1,7 +1,8 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
 // carry.cuh, fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
 // fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
-// g2_step_team.cuh, miller_step_team.cuh, curve.cuh, curve_team.cuh are plain
+// g2_step_team.cuh, miller_step_team.cuh, curve.cuh, curve_team.cuh,
+// signed_sum.cuh are plain
 // C++ when no CUDA compiler is at work: carry.cuh's PTX primitives are their
 // C++ twins there).
 // One loop over the batch stands in for the grid, with the same offsets as the kernels, so
@@ -17,6 +18,7 @@
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
 #include "miller_step_team.cuh"
+#include "signed_sum.cuh"
 
 enum {
   OP_MONT_MUL, OP_MOD_ADD, OP_MOD_SUB, OP_MOD_NEG, OP_FQ2_MUL, OP_FQ2_SQ, OP_FQ2_XI,
@@ -258,6 +260,27 @@ static Fq words_fq(const uint32_t* w) {
   return r;
 }
 
+// k_signed_sum's grid as loops: every (output, row, lane) of the table.
+template <class Table>
+static void signed_sum_grid(const Table& t, const Mod& m) {
+  for (int k = 0; k < t.n_out; k++)
+    for (int32_t row = 0; row < t.rows; row++)
+      for (int64_t b = 0; b < t.B; b++) signed_sum_element(t, k, row, b, m);
+}
+
+// bn_mod_signed_sum's table from the same host arrays; 1 when the entry
+// would refuse them.
+extern "C" int host_signed_sum(const long long* desc, const int8_t* terms, int n_src, int n_out, int n1, int n2,
+                               long long rows, long long B, const uint32_t* mod, uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  SumTable t;
+  if (!signed_sum_table(t, desc, terms, n_src, n_out, n1, n2, rows, B)) return 1;
+  signed_sum_grid(t, m);
+  return 0;
+}
+
 // out2 is the second output of the step kernels.  n and extra are a kernel's
 // own arguments: pow_fixed takes n = digit count and extra = exponent words
 // then the words of R mod m; the chain takes n = squarings; double_step takes
@@ -322,6 +345,18 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
       group_run<4>(pow, reverse, a, b, o, rows, B, e, one, m);
     return 0;
   }
+  if (op == OP_MOD_SUB) {  // kernels_fq.cu's entries: a table of one output, fixed at compile time
+    SumDense<1, -2> t;
+    if (!signed_sum_dense(t, a, b, o, rows, B)) return 1;
+    signed_sum_grid(t, m);
+    return 0;
+  }
+  if (op == OP_MOD_NEG) {
+    SumDense<-1, 0> t;
+    if (!signed_sum_dense(t, a, nullptr, o, rows, B)) return 1;
+    signed_sum_grid(t, m);
+    return 0;
+  }
   for (int64_t t = 0; t < rows * B; t++) {
     int64_t row = t / B, bb = t % B;
     int64_t o1 = row * BN_NLIMB * B + bb, o2 = 2 * row * BN_NLIMB * B + bb,
@@ -330,8 +365,6 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
     switch (op) {
       case OP_MONT_MUL: fq_store(o + o1, B, fq_mont_mul_inline(fq_load(a + o1, B), fq_load(b + o1, B), m)); break;
       case OP_MOD_ADD: fq_store(o + o1, B, fq_add(fq_load(a + o1, B), fq_load(b + o1, B), m)); break;
-      case OP_MOD_SUB: fq_store(o + o1, B, fq_sub(fq_load(a + o1, B), fq_load(b + o1, B), m)); break;
-      case OP_MOD_NEG: fq_store(o + o1, B, fq_neg(fq_load(a + o1, B), m)); break;
       case OP_FQ2_MUL: fq2_store(o + o2, B, fq2_mul(fq2_load(a + o2, B), fq2_load(b + o2, B), m)); break;
       case OP_FQ2_SQ: fq2_store(o + o2, B, fq2_sq(fq2_load(a + o2, B), m)); break;
       case OP_FQ2_XI: fq2_store(o + o2, B, fq2_xi(fq2_load(a + o2, B), m)); break;

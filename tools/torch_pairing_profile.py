@@ -11,10 +11,18 @@ time (sum of all kernel times), the idle share of the median wall time, and time
 for PyTorch's own kernels around them (stack, where, copy).  If the profiler shows
 no device time, it says so instead of printing zeros as if measured.  Before
 that it prints one JSON line with the time and the launches of each stage of
-the pipeline run on its own (host clock around a synchronise).
-Run from the repository root:  python3 tools/torch_pairing_profile.py [B]
+the pipeline run on its own (host clock around a synchronise).  With
+--replay N it also captures one call as a CUDA graph and replays it N times,
+one CUDA-event pair around each replay (the card's pace without the host's),
+and checks that the replay returns the eager call's limbs.  With --package
+DIR it profiles the bn_tpu_torch package of another checkout (an unpacked
+parent commit, say), so that two versions of the Python callers can be timed
+in turns, each in its own process, by the same tool.
+Run from the repository root:
+  python3 tools/torch_pairing_profile.py [B] [--replay N] [--package DIR]
 """
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -22,22 +30,32 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from bn_tpu_torch import ate, curve  # noqa: E402
-from bn_tpu_torch import params as P  # noqa: E402
-from bn_tpu_torch.fields import fp, tower  # noqa: E402
-from bn_tpu_torch.ops import backend, build  # noqa: E402
+def _import_package(checkout):
+    """The modules of the bn_tpu_torch of `checkout`, as this file's globals."""
+    global ate, curve, P, fp, tower, backend, build
+    sys.path.insert(0, str(Path(checkout).resolve()))
+    from bn_tpu_torch import ate, curve
+    from bn_tpu_torch import params as P
+    from bn_tpu_torch.fields import fp, tower
+    from bn_tpu_torch.ops import backend, build
 
 
 def main():
+    ap = argparse.ArgumentParser(description="stage times, device time by kernel and idle share of pairing_batch")
+    ap.add_argument("batch", nargs="?", type=int, default=8192)
+    ap.add_argument("--replay", type=int, default=0, help="graph replays of one captured call to time (0: none)")
+    ap.add_argument("--package", default=str(Path(__file__).resolve().parent.parent),
+                    help="the checkout whose bn_tpu_torch is profiled (default: this one)")
+    args = ap.parse_args()
+    _import_package(args.package)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    B = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
+    B = args.batch
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip()
     rng = np.random.default_rng(42)
@@ -50,10 +68,10 @@ def main():
                       "unfused": dict(pow_fixed=False, cyclo_chain=False, ladder=False)}
     for name, switches in configurations.items():
         with backend.fusions(**switches):
-            profile_one(name, B, card, p, q)
+            profile_one(name, B, card, p, q, args.replay)
 
 
-def profile_one(name, B, card, p, q):
+def profile_one(name, B, card, p, q, replays):
     """The `stages` line and the by-kernel line of the configuration in force."""
     g1s, g2s = curve.g1_spec(), curve.g2_spec()
     ate.pairing_batch(p, q)
@@ -105,12 +123,37 @@ def profile_one(name, B, card, p, q):
         print(json.dumps({"configuration": name, "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms,
                           "device_time": "not measured: the profiler recorded no device time"}))
         return
+    replay = replay_ms(p, q, replays) if replays else None
     print(json.dumps({
-        "configuration": name, "batch": B, "card": card, "wall_ms_unprofiled": wall_plain_ms, "wall_ms_unprofiled_runs": walls, "wall_ms_profiled": wall_ms,
+        "configuration": name, "batch": B, "card": card, "package": str(Path(ate.__file__).resolve().parent),
+        "replay_ms_runs": replay, "replay_ms": statistics.median(replay) if replay else None,
+        "wall_ms_unprofiled": wall_plain_ms, "wall_ms_unprofiled_runs": walls, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share_of_unprofiled_wall": 1 - busy_ms / wall_plain_ms,
         "kernels_total": sum(n for _, _, n in rows), "launches_of_this_package": launches,
         "by_kernel": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in rows[:25]],
     }))
+
+
+def replay_ms(p, q, n):
+    """ms of each of n replays of one pairing_batch captured as a CUDA graph;
+    the replay must return the eager call's limbs."""
+    want = ate.pairing_batch(p, q)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ate.pairing_batch(p, q)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        sys.exit("the replayed pairing_batch differs from the eager call")
+    runs = []
+    for _ in range(n):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        runs.append(t0.elapsed_time(t1))
+    return runs
 
 
 if __name__ == "__main__":
