@@ -49,9 +49,12 @@
 // The Montgomery product is the one function kept out of line in the tower
 // kernels (see tower.cuh): an Fq12 product inlines 54 of them otherwise.
 #define BN_DEV_NOINLINE __device__ __noinline__
+// What the C entries' host code shares with the kernels.
+#define BN_CONSTEXPR __host__ __device__ constexpr
 #else
 #define BN_DEV inline
 #define BN_DEV_NOINLINE inline
+#define BN_CONSTEXPR constexpr
 #endif
 
 #ifdef __CUDA_ARCH__

@@ -57,12 +57,6 @@
 #include "curve.cuh"
 #include "team.cuh"
 
-#ifdef __CUDACC__
-#define BN_CONSTEXPR __host__ __device__ constexpr
-#else
-#define BN_CONSTEXPR constexpr
-#endif
-
 // The products of the two laws in level order: jac_add's five levels (global
 // levels 0-4), then jac_double's three (5-7).
 enum CurveProduct {

@@ -2,7 +2,7 @@
 // g2_step_team.cuh, miller_step_team.cuh): the Fq2 additions and xi as
 // calls, an Fq2 in a team's shared memory, a thread's place in its block,
 // and the block's skeleton that runs a team in phases (team_block, at the
-// end).
+// end); and the smallest team, fq2_sq's (Fq2SqTeam).
 //
 // Lanes.  A block works on 32 consecutive elements: lane l of every warp on
 // element blockIdx.x * 32 + l, and warp w is member w.  Shared memory is
@@ -59,6 +59,32 @@ BN_DEV TeamLane team_lane_at(int lane, int w, int64_t first, int64_t n) {
   if (!t.live) t.e = n - 1;
   return t;
 }
+
+// fq2_sq as the smallest team (kernels_fq.cu): two warps on 32 elements,
+// warp 0 computes coefficient 0 of the square, (a0 + a1)(a0 - a1), and warp 1
+// coefficient 1, 2 a0 a1.  Each warp loads both coefficients of its lanes'
+// elements itself (the second warp's loads of a line find it in L1) and
+// stores only its own coefficient, so the warps share nothing: one phase, no
+// barrier, and each thread runs one Montgomery product's dependent chain.
+struct Fq2SqTeam {
+  static constexpr int kWarps = 2, kPhases = 1;
+  struct Shared {};
+  const int32_t* a;
+  int32_t* o;
+
+  BN_DEV void phase(int, const TeamLane& t, int64_t B, Shared&, const Mod& m) const {
+    const int64_t off = (t.e / B) * 2 * BN_NLIMB * B + t.e % B;
+    const Fq2 x = fq2_load(a + off, B);
+    Fq r;
+    if (t.w == 0) {
+      r = fq_mont_mul(fq_add(x.c0, x.c1, m), fq_sub(x.c0, x.c1, m), m);
+    } else {
+      r = fq_mont_mul(x.c0, x.c1, m);
+      r = fq_add(r, r, m);
+    }
+    if (t.live) fq_store(o + off + t.w * BN_NLIMB * B, B, r);
+  }
+};
 
 #ifdef __CUDACC__
 __device__ __forceinline__ TeamLane team_lane(int64_t n) {

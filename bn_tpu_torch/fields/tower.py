@@ -12,8 +12,9 @@ fq12_mul_by_024_prescaled, fq12_cyclotomic_sq and a run of cyclotomic
 squarings are one kernel each on the card (ops/mont_cuda.py,
 ops/tower_cuda.py).  The rest (Fq6 products, inversions, Frobenius) stack
 their independent Fq2 products along a new leading axis and send them
-through one fq2_mul call, and do their sums, differences, negations and
-conjugations a level at a time: one `mod_signed_sum` launch a level, which
+through one fq2_mul call, and do their sums, differences, negations,
+conjugations and products by xi a level at a time: one `mod_signed_sum`
+launch a level (its Fq2 form where xi is among the terms), which
 writes its results into the stacked operand or the packed element that reads
 them.  Formulas mirror the reference crate (src/fields/fq2.rs, fq6.rs,
 fq12.rs), which pin the golden vectors; addition and negation work on whole
@@ -36,6 +37,7 @@ from ..ops import tower_cuda as tc
 from . import fp
 
 FQ = fp.FQ
+XI = mc.XI  # a xi term of an Fq2 level of signed sums
 
 # ---------------------------------------------------------------------------
 # packing / component access
@@ -201,7 +203,7 @@ def fq2_inv(a):
 # steps) run on here: the dispatching wrappers
 _F = types.SimpleNamespace(
     add=add, sub=sub, neg=neg, mul=lambda a, b: fp.mul(FQ, a, b), fq2_mul=fq2_mul, fq2_xi=fq2_mul_by_xi,
-    signed_sum=lambda terms, sources, out=None: mc.mod_signed_sum(terms, sources, P.Q, out),
+    signed_sum=lambda terms, sources, out=None, fq2=False: mc.mod_signed_sum(terms, sources, P.Q, out, fq2),
 )
 
 
@@ -215,25 +217,26 @@ def fq6_mul(a, b):
     return tc.fq6_mul(_F, a, b)
 
 
-# fq6_inv's two levels of signed sums.  The first reads a0 a1 a2 xi(a2) and
-# writes both stacked operands of the six products (copies); the second reads
-# the products s_a0 a1xa2 s_a2 a0a1 s_a1 a0a2 and xi(s_a2) and writes
-# (k0, k2, k1), the partners of (a0, a1, a2), then (k0, k1, k2).
-FQ6_INV_OPERANDS = tuple(((i, 1),) for i in (0, 1, 2, 0, 1, 0, 0, 3, 2, 1, 1, 2))
-_K0, _K1, _K2 = ((0, 1), (1, -1)), ((6, 1), (3, -1)), ((4, 1), (5, -1))
+# fq6_inv's three levels of signed sums, Fq2 levels.  The first reads a0 a1
+# a2 and writes both stacked operands of the six products (copies, and xi a2);
+# the second reads the products s_a0 a1xa2 s_a2 a0a1 s_a1 a0a2 and writes
+# (k0, k2, k1), the partners of (a0, a1, a2), then (k0, k1, k2); the third
+# reads a0 k0, a1 k2, a2 k1 and writes the norm.
+FQ6_INV_OPERANDS = tuple(((i, 1),) for i in (0, 1, 2, 0, 1, 0, 0)) + (((2, 1, XI),),) + tuple(((i, 1),) for i in (2, 1, 1, 2))
+_K0, _K1, _K2 = ((0, 1), (1, -1)), ((2, 1, XI), (3, -1)), ((4, 1), (5, -1))
 FQ6_INV_NORM_FACTORS = (_K0, _K2, _K1, _K0, _K1, _K2)
+FQ6_INV_NORM = (((2, 1, XI), (1, 1, XI), (0, 1)),)
 
 
 def fq6_inv(a):
     """Norm-based inversion (src/fields/fq6.rs:129-141): k0 = a0^2 - xi a1 a2,
     k1 = xi a2^2 - a0 a1, k2 = a1^2 - a0 a2, norm = xi (a2 k1 + a1 k2) + a0 k0,
     a^-1 = (k0, k1, k2) / norm."""
-    a0, a1, a2 = (c6(a, i) for i in range(3))
-    operands = mc.mod_signed_sum(FQ6_INV_OPERANDS, (a0, a1, a2, fq2_mul_by_xi(a2)), P.Q)
+    operands = mc.mod_signed_sum(FQ6_INV_OPERANDS, [c6(a, i) for i in range(3)], P.Q, fq2=True)
     prods = fq2_mul(operands[:6], operands[6:])
-    ks = mc.mod_signed_sum(FQ6_INV_NORM_FACTORS, (*prods, fq2_mul_by_xi(prods[2])), P.Q)
+    ks = mc.mod_signed_sum(FQ6_INV_NORM_FACTORS, prods.unbind(0), P.Q, fq2=True)
     p = fq2_mul(a.movedim(-4, 0), ks[:3])  # a0 k0, a1 k2, a2 k1
-    norm = add(fq2_mul_by_xi(add(p[2], p[1])), p[0])
+    (norm,) = mc.mod_signed_sum(FQ6_INV_NORM, p.unbind(0), P.Q, fq2=True)
     t = fq2_inv(norm)
     return fq2_mul(t[None], ks[3:]).movedim(0, -4).contiguous()
 
@@ -265,9 +268,9 @@ def fq12_sq(a):
     return tc.fq12_sq(a, P.Q)
 
 
-# p0 - v p1 for Fq6 elements p0, p1, v p1 = (xi p1_2, p1_0, p1_1), from the
-# sources p0_0 p0_1 p0_2, xi(p1_2), p1_0, p1_1
-FQ6_SUB_NONRESIDUE = (((0, 1), (3, -1)), ((1, 1), (4, -1)), ((2, 1), (5, -1)))
+# p0 - v p1 for Fq6 elements p0, p1, v p1 = (xi p1_2, p1_0, p1_1), an Fq2
+# level from the sources p0_0 p0_1 p0_2 p1_0 p1_1 p1_2
+FQ6_SUB_NONRESIDUE = (((0, 1), (5, -1, XI)), ((1, 1), (3, -1)), ((2, 1), (4, -1)))
 
 
 def fq12_inv(a):
@@ -275,8 +278,8 @@ def fq12_inv(a):
     both = a.movedim(-5, 0)  # (a0, a1) stacked, a view
     p = fq6_mul(both, both)
     d = p.new_empty(p.shape[1:])
-    srcs = [c6(p[0], i) for i in range(3)] + [fq2_mul_by_xi(c6(p[1], 2)), c6(p[1], 0), c6(p[1], 1)]
-    mc.mod_signed_sum(FQ6_SUB_NONRESIDUE, srcs, P.Q, out=d.movedim(-4, 0))
+    srcs = [c6(p[k], i) for k in range(2) for i in range(3)]
+    mc.mod_signed_sum(FQ6_SUB_NONRESIDUE, srcs, P.Q, out=d.movedim(-4, 0), fq2=True)
     p = fq6_mul(both, fq6_inv(d)[None])
     return _negate_second(p[0], p[1], -5)
 

@@ -55,9 +55,10 @@ ENTRIES = {
     "fq2_sq": ("kernels_fq", _UNARY),
     "fq2_xi": ("kernels_fq", _UNARY),
     # a level of signed sums: operand descriptors and term codes (host
-    # arrays), source and output counts, the extents n1, n2, rows, B
+    # arrays), source and output counts, the extents n1, n2, rows, B; the
+    # flag says Fq2 elements (the Fq2 form, whose terms may multiply by xi)
     "mod_signed_sum": ("kernels_fq", [ctypes.POINTER(_LL), ctypes.POINTER(ctypes.c_int8)] + [ctypes.c_int] * 4
-                       + [_LL, _LL] + _MODARGS),
+                       + [_LL, _LL, ctypes.c_int] + _MODARGS),
     "fq12_mul": ("kernel_fq12_mul", _BINARY),
     "fq12_sq": ("kernel_fq12_sq", _UNARY),
     "fq12_mul024_pre": ("kernel_fq12_mul024_pre", [_P, _P, _P, _P, _LL, _LL] + _MODARGS),

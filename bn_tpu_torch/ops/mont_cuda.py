@@ -15,9 +15,13 @@ and materialise the result before a launch (`expand(...).contiguous()`): the
 kernels read dense tensors only.  mod_signed_sum, a whole level of sums,
 differences and negations in one launch (mod_sub and mod_neg are its one-
 output cases), reads its sources in place and writes where the caller says:
-any strides between the (16, B) blocks of an element.  The modulus is an
-argument (Fq or Fr) and reaches the kernel as eight 32-bit words plus
--m^-1 mod 2^32.
+any strides between the (16, B) blocks of an element.  Its Fq2 form
+(fq2=True) works on (..., 2, 16, B) elements, a dense (2, 16, B) block each,
+and a term may multiply its source by xi = 9 + u: so a tower formula's
+products by xi join the level of sums around them, and fq2_xi is the Fq2
+form's one-term case.  fq2_sq's kernel is a team of two warps on 32
+elements, one coefficient a warp.  The modulus is an argument (Fq or Fr) and
+reaches the kernel as eight 32-bit words plus -m^-1 mod 2^32.
 """
 
 from __future__ import annotations
@@ -173,25 +177,32 @@ SUM_MAX_TERMS = 4  # csrc/signed_sum.cuh's bounds
 SUM_MAX_SOURCES = 16
 SUM_MAX_OUTPUTS = 16
 _SUM_ROW_DIMS = 3
+_SUM_XI_FLAG = 32  # csrc/signed_sum.cuh's BN_SUM_XI
+XI = "xi"  # a term (i, sign, XI): sign * xi * sources[i], in an Fq2 level
 
 
 @functools.lru_cache(maxsize=None)
-def _sum_codes(terms):
+def _sum_codes(terms, fq2: bool):
     """Check a level's terms and encode them as the kernel reads them: output
-    k's term j is +(i + 1) for +source i, -(i + 1) for -source i, 0 after its
-    last term.  Returns (the codes as a C array, sources the terms name)."""
+    k's term j is +(i + 1) for +source i, -(i + 1) for -source i, with 32
+    added to i + 1 for xi times source i, 0 after its last term.  Returns
+    (the codes as a C array, sources the terms name)."""
     if not 1 <= len(terms) <= SUM_MAX_OUTPUTS:
         raise ValueError(f"mod_signed_sum: 1 to {SUM_MAX_OUTPUTS} outputs, got {len(terms)}")
-    codes = []
+    codes, named = [], 0
     for out_terms in terms:
         if not 1 <= len(out_terms) <= SUM_MAX_TERMS:
             raise ValueError(f"mod_signed_sum: 1 to {SUM_MAX_TERMS} terms an output, got {out_terms}")
-        for i, sign in out_terms:
-            if sign not in (1, -1) or not 0 <= i < SUM_MAX_SOURCES:
-                raise ValueError(f"mod_signed_sum: a term is (source below {SUM_MAX_SOURCES}, +1 or -1), got {(i, sign)}")
-            codes.append(sign * (i + 1))
+        for term in out_terms:
+            i, sign, *xi = term
+            if sign not in (1, -1) or not 0 <= i < SUM_MAX_SOURCES or xi not in ([], [XI]):
+                raise ValueError(f"mod_signed_sum: a term is (source below {SUM_MAX_SOURCES}, +1 or -1[, XI]), got {term}")
+            if xi and not fq2:
+                raise ValueError(f"mod_signed_sum: a xi term {term} needs the Fq2 form (fq2=True)")
+            codes.append(sign * (i + 1 + (_SUM_XI_FLAG if xi else 0)))
+            named = max(named, i + 1)
         codes += [0] * (SUM_MAX_TERMS - len(out_terms))
-    return (ctypes.c_int8 * len(codes))(*codes), max(abs(c) for c in codes)
+    return (ctypes.c_int8 * len(codes))(*codes), named
 
 
 def _view(t):
@@ -199,10 +210,17 @@ def _view(t):
     return t, t.data_ptr(), tuple(t.shape), t.stride()
 
 
-def _dense_tail(v) -> bool:
-    """Limb i of lane b at i*B + b from the element's start."""
+def _tail(fq2: bool) -> int:
+    """The axes of an operand's dense block: (16, B), or (2, 16, B)."""
+    return 3 if fq2 else 2
+
+
+def _dense_tail(v, fq2: bool = False) -> bool:
+    """Limb i of lane b at i*B + b from the element's start (of coefficient
+    c at (c*16 + i)*B + b for the Fq2 form)."""
     _, _, shape, stride = v
-    return stride[-2] == shape[-1] and (stride[-1] == 1 or shape[-1] == 1)
+    return (stride[-2] == shape[-1] and (stride[-1] == 1 or shape[-1] == 1)
+            and (not fq2 or stride[-3] == P.NLIMBS * shape[-1]))
 
 
 def _extent(v, is_out):
@@ -211,15 +229,16 @@ def _extent(v, is_out):
     return ptr, ptr + 4 * (sum((n - 1) * s for n, s in zip(shape, stride)) + 1), is_out
 
 
-def _block_extents(v, is_out):
-    """_extent of each (16, B) block of v, for v (..., 16, B)."""
+def _block_extents(v, is_out, fq2: bool):
+    """_extent of each dense block of v, for v (..., 16, B) or (..., 2, 16, B)."""
     _, ptr, shape, stride = v
-    tail = 4 * ((shape[-2] - 1) * stride[-2] + (shape[-1] - 1) * stride[-1] + 1)
+    tail = _tail(fq2)
+    end = 4 * (sum((n - 1) * s for n, s in zip(shape[-tail:], stride[-tail:])) + 1)
     starts = [ptr]
-    for n, s in zip(shape[:-2], stride[:-2]):
+    for n, s in zip(shape[:-tail], stride[:-tail]):
         if n > 1:
             starts = [a + 4 * s * i for a in starts for i in range(n)]
-    return [(a, a + tail, is_out) for a in starts]
+    return [(a, a + end, is_out) for a in starts]
 
 
 def _overlap(extents) -> bool:
@@ -247,17 +266,18 @@ def _self_overlapping(v) -> bool:
     return False
 
 
-def _sum_setup(terms, sources, out):
+def _sum_setup(terms, sources, out, fq2: bool):
     """Check a level and resolve its outputs: (codes, the sources brought to
     one shape, the outputs, as _view records, and what the call returns)."""
-    codes, named = _sum_codes(terms)
+    codes, named = _sum_codes(terms, fq2)
     sources = broadcast(*sources)
     if not named <= len(sources) <= SUM_MAX_SOURCES:
         raise ValueError(f"mod_signed_sum: the terms name {named} sources, {len(sources)} given (at most {SUM_MAX_SOURCES})")
     srcs = [_view(t) for t in sources]
     shape = srcs[0][2]
-    if len(shape) < 2 or shape[-2] != P.NLIMBS or any(t.dtype != torch.int32 for t in sources):
-        raise ValueError(f"mod_signed_sum: sources are int32 (..., {P.NLIMBS}, B), got {shape} {sources[0].dtype}")
+    element = ((2,) if fq2 else ()) + (P.NLIMBS,)
+    if len(shape) < len(element) + 1 or shape[-1 - len(element):-1] != element or any(t.dtype != torch.int32 for t in sources):
+        raise ValueError(f"mod_signed_sum: sources are int32 (..., {', '.join(map(str, element))}, B), got {shape} {sources[0].dtype}")
     if out is None:
         result = torch.empty((len(terms),) + shape, dtype=torch.int32, device=sources[0].device)
         return codes, srcs, [_view(o) for o in result.unbind(0)], result
@@ -268,28 +288,28 @@ def _sum_setup(terms, sources, out):
         o = v[0]
         if o.dtype != torch.int32 or v[2] != shape or o.device != sources[0].device:
             raise ValueError(f"mod_signed_sum: destination {v[2]} {o.dtype} on {o.device}, expected {shape} torch.int32 on {sources[0].device}")
-        if not _dense_tail(v) or _self_overlapping(v):
-            raise ValueError("mod_signed_sum: a destination needs a dense (16, B) block an element and its own address for every element")
+        if not _dense_tail(v, fq2) or _self_overlapping(v):
+            raise ValueError("mod_signed_sum: a destination needs a dense block an element and its own address for every element")
     ops = [(v, True) for v in outs] + [(v, False) for v in srcs]
     extents = [_extent(v, is_out) for v, is_out in ops]
-    if _overlap(extents):  # ranges meet: compare the (16, B) blocks of the operands whose ranges meet
+    if _overlap(extents):  # ranges meet: compare the dense blocks of the operands whose ranges meet
 
         def meets(k):  # an output: any other operand; a source: any output
             lo, hi, _ = extents[k]
             others = extents if k < len(outs) else extents[: len(outs)]
             return any(j != k and l < hi and lo < h for j, (l, h, _) in enumerate(others))
 
-        blocks = [b for k, (v, is_out) in enumerate(ops) if meets(k) for b in _block_extents(v, is_out)]
+        blocks = [b for k, (v, is_out) in enumerate(ops) if meets(k) for b in _block_extents(v, is_out, fq2)]
         if _overlap(blocks):
             raise ValueError("mod_signed_sum: a destination overlaps a source or another destination")
     return codes, srcs, outs, out
 
 
 def _sum_operands(ops, rows):
-    """(n1, n2, descriptors) of operands (*rows, 16, B), _view records: the
-    row axes merged where every operand allows it, at most three left, r2
-    the fastest; each operand as its address and the element strides of r0,
-    r1, r2."""
+    """(n1, n2, descriptors) of operands (*rows, <dense block>), _view
+    records: the row axes merged where every operand allows it, at most three
+    left, r2 the fastest; each operand as its address and the element
+    strides of r0, r1, r2."""
     dims = []  # [extent, the operands' strides], fastest first
     for d in range(len(rows) - 1, -1, -1):
         if rows[d] == 1:
@@ -309,22 +329,26 @@ def _sum_operands(ops, rows):
 
 def _signed_sum_plain_into(terms, srcs, outs, modulus: int):
     m = _m_limbs(modulus)
-    for (o, *_), ((i, sign), *rest) in zip(outs, terms):
-        acc = srcs[i][0] if sign > 0 else lb.mod_neg(srcs[i][0], m)
-        for i, sign in rest:
-            acc = (lb.mod_add if sign > 0 else lb.mod_sub)(acc, srcs[i][0], m)
+
+    def value(i, xi):
+        return fq2_xi_plain(srcs[i][0], modulus) if xi else srcs[i][0]
+
+    for (o, *_), ((i, sign, *xi), *rest) in zip(outs, terms):
+        acc = value(i, xi) if sign > 0 else lb.mod_neg(value(i, xi), m)
+        for i, sign, *xi in rest:
+            acc = (lb.mod_add if sign > 0 else lb.mod_sub)(acc, value(i, xi), m)
         o.copy_(acc)
 
 
-def mod_signed_sum_plain(terms, sources, modulus: int, out=None):
-    """mod_signed_sum's plain version: ops/limbs.py's mod_neg, mod_add and
-    mod_sub term by term."""
-    _, srcs, outs, result = _sum_setup(terms, sources, out)
+def mod_signed_sum_plain(terms, sources, modulus: int, out=None, fq2: bool = False):
+    """mod_signed_sum's plain version: fq2_xi_plain for a xi term, then
+    ops/limbs.py's mod_neg, mod_add and mod_sub term by term."""
+    _, srcs, outs, result = _sum_setup(terms, sources, out, fq2)
     _signed_sum_plain_into(terms, srcs, outs, modulus)
     return result
 
 
-def mod_signed_sum(terms, sources, modulus: int, out=None):
+def mod_signed_sum(terms, sources, modulus: int, out=None, fq2: bool = False):
     """A level of signed sums in one launch: output k is
     sum_j sign_kj * sources[i_kj] mod m for its terms ((i_kj, sign_kj), ...)
     in terms[k], sign +1 or -1, a first term of -1 a negation, a lone +1 a
@@ -339,21 +363,26 @@ def mod_signed_sum(terms, sources, modulus: int, out=None):
     (16, B) block an element.  A destination may not overlap a source or
     another destination (their storage ranges, then their blocks, are
     compared); the call returns `out`.  Every result is the canonical
-    residue, so the order of the terms changes no bit."""
-    codes, srcs, outs, result = _sum_setup(terms, sources, out)
+    residue, so the order of the terms changes no bit.
+
+    With fq2=True the level's elements are Fq2: S = (..., 2, 16, B), a dense
+    (2, 16, B) block an element, and a term may be a triple (i, sign, XI),
+    sign * xi * sources[i] with xi = 9 + u (one thread then owns both
+    coefficients of an output's lane)."""
+    codes, srcs, outs, result = _sum_setup(terms, sources, out, fq2)
     if not _on_card(*(v[0] for v in srcs), *(v[0] for v in outs)):
         _signed_sum_plain_into(terms, srcs, outs, modulus)
         return result
-    srcs = [v if _dense_tail(v) else _view(v[0].contiguous()) for v in srcs]
+    srcs = [v if _dense_tail(v, fq2) else _view(v[0].contiguous()) for v in srcs]
     shape = srcs[0][2]
     rows = 1
-    for d in shape[:-2]:
+    for d in shape[: -_tail(fq2)]:
         rows *= d
     if rows * shape[-1]:
-        n1, n2, desc = _sum_operands(srcs + outs, shape[:-2])
+        n1, n2, desc = _sum_operands(srcs + outs, shape[: -_tail(fq2)])
         words, inv32 = _mod_args(modulus)
         build.launch("mod_signed_sum", srcs[0][0].device, desc, codes, len(srcs), len(outs), n1, n2,
-                     rows, shape[-1], words, inv32)
+                     rows, shape[-1], int(fq2), words, inv32)
     return result
 
 
@@ -461,6 +490,8 @@ def fq2_sq_plain(a, modulus: int):
 
 
 def fq2_sq(a, modulus: int):
+    """a^2; on the card a team of two warps on 32 elements, one coefficient a
+    warp (csrc/team.cuh, Fq2SqTeam)."""
     if not _on_card(a):
         return fq2_sq_plain(a, modulus)
     return launch("fq2_sq", (a,), ((2,),), modulus)
@@ -477,6 +508,8 @@ def fq2_xi_plain(a, modulus: int):
 
 
 def fq2_xi(a, modulus: int):
+    """xi a: the Fq2 form of mod_signed_sum's one-term case, its table fixed
+    at compile time."""
     if not _on_card(a):
         return fq2_xi_plain(a, modulus)
     return launch("fq2_xi", (a,), ((2,),), modulus)

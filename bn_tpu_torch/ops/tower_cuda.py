@@ -29,6 +29,7 @@ from .. import oracle as O
 from .. import params as P
 from . import limbs as lb
 from .mont_cuda import (
+    XI,
     _check_destination,
     _m_limbs,
     _on_card,
@@ -75,7 +76,8 @@ class PlainField:
         # axes would otherwise be aligned against
         self.fq2_mul = lambda a, b: fq2_mul_plain(*broadcast(a, b), modulus)
         self.fq2_xi = lambda a: fq2_xi_plain(a, modulus)
-        self.signed_sum = lambda terms, sources, out=None: mod_signed_sum_plain(terms, sources, modulus, out)
+        self.signed_sum = lambda terms, sources, out=None, fq2=False: mod_signed_sum_plain(
+            terms, sources, modulus, out, fq2)
 
 
 _plain_field = functools.lru_cache(maxsize=None)(PlainField)
@@ -86,39 +88,31 @@ def fq6_nr(F, a):
     return _pack6(F.fq2_xi(_c6(a, 2)), _c6(a, 0), _c6(a, 1))
 
 
-# fq6_mul's three levels of signed sums (F.signed_sum, one launch each on the
+# fq6_mul's two levels of signed sums (F.signed_sum, one launch each on the
 # card).  The operands' level reads a0 a1 a2 b0 b1 b2 and writes both stacked
-# operands of the six Fq2 products; the first level after the products reads
-# aa bb cc t12 t01 t02 and writes xi's operand (t12 - bb - cc, cc), then
-# t01 - aa - bb and r2; the last reads xi's two results, aa and t01 - aa - bb.
+# operands of the six Fq2 products; the results' level, an Fq2 level, reads
+# the products aa bb cc t12 t01 t02 and writes r0 r1 r2 into the packed
+# result, xi's products among its terms.
 FQ6_MUL_OPERANDS = (
     ((0, 1),), ((1, 1),), ((2, 1),), ((1, 1), (2, 1)), ((0, 1), (1, 1)), ((0, 1), (2, 1)),
     ((3, 1),), ((4, 1),), ((5, 1),), ((4, 1), (5, 1)), ((3, 1), (4, 1)), ((3, 1), (5, 1)),
 )
-FQ6_MUL_DIFFERENCES = (
-    ((3, 1), (1, -1), (2, -1)),  # t12 - bb - cc
-    ((2, 1),),  # cc
-    ((4, 1), (0, -1), (1, -1)),  # t01 - aa - bb
-    ((5, 1), (0, -1), (1, 1), (2, -1)),  # r2 = t02 - aa + bb - cc
-)
 FQ6_MUL_RESULTS = (
-    ((0, 1), (2, 1)),  # r0 = xi(t12 - bb - cc) + aa
-    ((3, 1), (1, 1)),  # r1 = t01 - aa - bb + xi(cc)
+    ((3, 1, XI), (1, -1, XI), (2, -1, XI), (0, 1)),  # r0 = xi t12 - xi bb - xi cc + aa
+    ((4, 1), (0, -1), (1, -1), (2, 1, XI)),  # r1 = t01 - aa - bb + xi cc
+    ((5, 1), (0, -1), (1, 1), (2, -1)),  # r2 = t02 - aa + bb - cc
 )
 
 
 def fq6_mul(F, a, b):
     """Karatsuba (src/fields/fq6.rs:144-158): 6 Fq2 products in one stacked
-    call, between three levels of signed sums and one stacked xi product."""
+    call, between two levels of signed sums."""
     srcs = [_c6(a, i) for i in range(3)] + [_c6(b, i) for i in range(3)]
     operands = F.signed_sum(FQ6_MUL_OPERANDS, srcs)
     prods = F.fq2_mul(operands[:6], operands[6:])  # aa bb cc t12 t01 t02
     shape = prods.shape[1:]
     out = prods.new_empty(shape[:-3] + (3,) + shape[-3:])
-    u = prods.new_empty((3,) + shape)
-    F.signed_sum(FQ6_MUL_DIFFERENCES, prods, out=(u[0], u[1], u[2], _c6(out, 2)))
-    xi = F.fq2_xi(u[:2])
-    F.signed_sum(FQ6_MUL_RESULTS, (xi[0], xi[1], prods[0], u[2]), out=(_c6(out, 0), _c6(out, 1)))
+    F.signed_sum(FQ6_MUL_RESULTS, prods, out=out.movedim(-4, 0), fq2=True)
     return out
 
 

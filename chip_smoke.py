@@ -14,9 +14,10 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     both moduli where the kernel takes one, and at the shape the main path
     gives it at B = 8192 — and holds each result against the kernel's plain
     PyTorch version on the same inputs (`mont_mul`, `mod_add`, `mod_sub`,
-    `mod_neg` for both moduli and `fq2_mul` also on edge_pairs(), whose
-    carries and borrows run through whole words, the first four against
-    Python's integers too; `pow_fixed` also against Python's
+    `mod_neg`, `fq2_sq` and `fq2_xi` for both moduli and `fq2_mul` also on
+    edge_pairs(), whose carries and borrows run through whole words, all but
+    `fq2_mul` against Python's integers too; `fq2_sq`, a team of two warps,
+    also at B = 1, 37, 8192 and 2^16 to 2^20 lanes, each width timed; `pow_fixed` also against Python's
     pow, with the Fermat exponent and one with a zero digit inside; the
     squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
     `miller_step` in both instantiations, with and without the square;
@@ -33,42 +34,48 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     probe and the launch floor with an empty kernel (the same graph replay,
     at one block and at the grids rows 1-7 launch), and from that rate and
     the published memory rate computes each
-    kernel's bound at the timed shape; the ten kernels that give 32
+    kernel's bound at the timed shape; the eleven kernels that give 32
     elements to a block, the teams `fq12_mul`, `fq12_sq`, `fq12_mul024_pre`,
-    the chain, `fq12_cyclo_sq`, `double_step`, `madd_step`, `fq12_mul024` and
-    `miller_step` (both instances) and the group kernel `pow_fixed`, are also
+    the chain, `fq12_cyclo_sq`, `double_step`, `madd_step`, `fq12_mul024`,
+    `miller_step` (both instances) and `fq2_sq` and the group kernel `pow_fixed`, are also
     held at B = 37, lead 3 (blocks of 32 that straddle the rows; `pow_fixed`
     for both moduli and both exponents, against Python's pow too), and their
     rows give the block of their launch at the
     timed shape (threads, elements) and the loaded kernel's static shared
     memory (cudaFuncGetAttributes); the chain's row its time at n = 1 and 5
-    beside n = 2.  mod_sub and mod_neg are the two- and one-term cases of
-    k_signed_sum; `mod_signed_sum` launches it on a whole level of signed
-    sums, and each level the main path runs (SUM_LEVELS: conjugations,
-    fq6_mul's three levels, fq6_inv's two, fq12_inv's difference, the twisted
-    bases' conjugates) is held against the plain signed sum at a ragged batch
-    of 1000, lead 3, for both moduli, and at the main path's shape, where it
-    is timed (its row: `levels`); and on the edge pairs as the halves of a
-    lead-3 Fq12, also against Python's integers;
+    beside n = 2.  mod_sub, mod_neg and fq2_xi are the two- and one-term
+    cases of k_signed_sum; `mod_signed_sum` launches it on a whole level of
+    signed sums, of field elements or of Fq2 elements whose terms may
+    multiply by xi, and each level the main path runs (SUM_LEVELS:
+    conjugations, fq6_mul's two levels, fq6_inv's three, fq12_inv's
+    difference, the twisted bases' conjugates; the Fq2 ones those with a xi term)
+    is held against the plain signed sum at a ragged batch of 1000, lead 3,
+    for both moduli, and at the main path's shape, where it is timed (its
+    row: `levels`); and on the edge pairs as the halves of a lead-3 Fq12 and
+    as the coefficients of Fq2 elements fed to xi, also against Python's
+    integers;
  4. drives the main path once: `pairing_batch` as a caller gets it, every
     switch of ops/backend.py at its default (the four fusions on,
     `miller_step` off).  Launch counts are set to 0 just before that call and
-    read just after it; each of the pairing's fourteen kernels must have been
+    read just after it; each of the pairing's thirteen kernels must have been
     launched, neither curve kernel nor `fq12_mul024` nor `miller_step`,
     `pow_fixed` 3, `fq12_cyclo_sq_chain` 69, `double_step` 64 and
-    `madd_step` 38 times, and the sums SUM_LAUNCHES times (`mod_add` 4,
-    `mod_signed_sum` 26, `mod_sub` and `mod_neg` alone never).
+    `madd_step` 38 times, and the sums SUM_LAUNCHES times (`mod_add` 2,
+    `mod_signed_sum` 25, `mod_sub`, `mod_neg` and `fq2_xi` alone never),
+    LAUNCHES_TOTAL["fused"] launches in all.
     Lanes 0, 1, B/2 and B-1 must equal the pure-Python oracle bit for bit,
     the two lanes with an infinite input must give Gt one, and the
     bilinearity pair e(sP, Q) = e(P, sQ) must agree;
  5. drives the unfused path (every fusion off) on the first 1024 lanes of the
-    same inputs: it must launch each of the ten unfused kernels and none
-    of the four fused ones, and return the fused run's lanes bit for bit;
+    same inputs: it must launch each of the ten unfused kernels and `mod_sub`,
+    `mod_neg` and `fq2_xi` alone (whose path it is), none of the four fused
+    ones, LAUNCHES_TOTAL["unfused"] in all, and return the fused run's lanes bit for bit;
     likewise the precompute alone, whole tensor;
  6. times both paths at B = 8192 in turns, three runs each;
  6b. `miller_path`: the main path's inputs with the `miller_step` switch on:
     exactly 102 `miller_step` launches (64 of them the squaring instance),
-    none of `fq12_sq` or `fq12_mul024_pre`, and all 8192 lanes equal to the
+    none of `fq12_sq`, `fq12_mul024_pre` or `fq2_xi`, LAUNCHES_TOTAL["miller_step"]
+    in all, and all 8192 lanes equal to the
     main path's result; both configurations timed in turns, the pairing and
     the Miller loop alone, three runs each; `tower.fq12_mul_by_024` on the
     run's own line coefficients and points (one `fq12_mul024` launch) equal
@@ -166,19 +173,30 @@ CURVE_KERNELS = {
 # kernels whose C source also has bn_<name>_launch: the block of a launch.
 # These give 32 elements to a block, so they are also held at B_STRADDLE.
 TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12_cyclo_sq_chain",
-                "double_step", "madd_step", "pow_fixed", "fq12_mul024", "miller_step")
+                "double_step", "madd_step", "pow_fixed", "fq12_mul024", "miller_step", "fq2_sq")
+# fq2_sq's team, also held and timed at these widths (lanes of one Fq2 row):
+# one lane, a ragged block, the main path, and from 2^16 to 2^20, where the
+# bytes take over
+FQ2_SQ_WIDTHS = (1, 37, 8192, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+# kernels held against their plain version for Fr as well as Fq
+BOTH_MODULI = ("mont_mul", "mod_add", "mod_sub", "mod_neg", "pow_fixed", "fq2_sq", "fq2_xi")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
 MILLER_KERNELS = ("fq12_mul024", "miller_step")  # not on the default path
-# mod_sub and mod_neg are the two- and one-term cases of k_signed_sum: the
-# fused path runs its levels through mod_signed_sum and calls neither alone
-SUM_SINGLE_OPS = ("mod_sub", "mod_neg")
-# the fourteen kernels pairing_batch launches
+# mod_sub, mod_neg and fq2_xi are the two- and one-term cases of
+# k_signed_sum: the fused path runs its levels through mod_signed_sum and
+# calls none of them alone; the unfused path does (its precompute's sums and
+# products by xi), so that is their path
+SUM_SINGLE_OPS = ("mod_sub", "mod_neg", "fq2_xi")
+# the thirteen kernels pairing_batch launches
 PAIRING_KERNELS = tuple(k for k in KERNEL_TABLE if k not in MILLER_KERNELS + SUM_SINGLE_OPS) + ("mod_signed_sum",)
-# launches of the sums in one fused pairing_batch: fq2_inv (twice) and
-# fq6_inv's norm add alone; every other sum, difference, negation and
-# conjugation is one mod_signed_sum launch a level (fq12_conj 10, fq12_inv 11,
-# to_affine's fq2_inv 1, the odd Frobenius maps 2, the twisted bases 2)
-SUM_LAUNCHES = {"mod_add": 4, "mod_sub": 0, "mod_neg": 0, "mod_signed_sum": 26}
+# launches of the sums in one fused pairing_batch: fq2_inv's add alone (twice);
+# every other sum, difference, negation, conjugation and product by xi is one
+# mod_signed_sum launch a level (fq12_conj 10, fq12_inv 10, to_affine's
+# fq2_inv 1, the odd Frobenius maps 2, the twisted bases 2)
+SUM_LAUNCHES = {"mod_add": 2, "mod_sub": 0, "mod_neg": 0, "fq2_xi": 0, "mod_signed_sum": 25}
+# the port's launches of one pairing_batch in each configuration (the
+# unfused one on B_UNFUSED lanes: the count does not depend on the batch)
+LAUNCHES_TOTAL = {"fused": 489, "miller_step": 424, "unfused": 3367}
 # mod_signed_sum's levels on the main path, with the leading axes they have
 # there at B = 8192 (fq12_inv's Fq6 products run on the pair (a0, a1))
 SUM_LEVELS = {
@@ -187,10 +205,10 @@ SUM_LEVELS = {
     "fq2_conj": (),  # fq2_inv's result
     "fq6_mul_operands": (2,),
     "fq6_mul_operands_broadcast": (2,),  # fq6_mul(both, t[None])
-    "fq6_mul_differences": (2,),
     "fq6_mul_results": (2,),
     "fq6_inv_operands": (),
     "fq6_inv_norm_factors": (),
+    "fq6_inv_norm": (),
     "fq6_sub_nonresidue": (),  # fq12_inv's p0 - v p1
     "mul_by_q_conj": (),
     "mul_by_q_conj_negated": (),
@@ -200,6 +218,15 @@ SUM_ROW_LEVEL = "fq6_mul_operands"  # the largest level: the row's own time and 
 # lead-3 Fq12 into the halves of two others
 EDGE_SUM_TERMS = (((0, 1), (1, -1)), ((0, -1),), ((0, 1), (1, 1)), ((1, 1), (0, -1), (0, -1), (1, -1)))
 EDGE_SUM_VALUES = (lambda x, y: x - y, lambda x, y: -x, lambda x, y: x + y, lambda x, y: -2 * x)
+# the edge pairs fed to xi: an Fq2 level on s0 = (x, y) and s1 = (y, x):
+# xi s0, -xi s0, xi s0 - xi s1, s1 - xi s0 + xi s1 + s0, each output's two
+# coefficients as values of (x, y) (terms built in main(): the XI marker)
+XI_EDGE_SUM_VALUES = (
+    (lambda x, y: 9 * x - y, lambda x, y: x + 9 * y),
+    (lambda x, y: y - 9 * x, lambda x, y: -x - 9 * y),
+    (lambda x, y: 10 * (x - y), lambda x, y: 8 * (y - x)),
+    (lambda x, y: (y + x) + (9 * y - x) - (9 * x - y), lambda x, y: (x + y) + (y + 9 * x) - (x + 9 * y)),
+)
 MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
 LOG2_MSM = 20  # the MSM's size: 2^20 points
 MSM_C = 16  # its window
@@ -208,9 +235,10 @@ FUSED_KERNELS = {"pow_fixed": 3, "fq12_cyclo_sq_chain": 69, "double_step": 64, "
 UNFUSED = dict(pow_fixed=False, cyclo_chain=False, ladder=False)
 # mangled-name fragments of the __global__ functions, to read `ptxas -v`
 PTXAS_NAMES = {
-    "mont_mul": "8k_binaryILi0E", "mod_add": "8k_binaryILi1E", "mod_sub": "12k_signed_sumI8SumDenseILi1ELin2EEE",
-    "mod_neg": "12k_signed_sumI8SumDenseILin1ELi0EEE", "mod_signed_sum": "12k_signed_sumI8SumTableE", "fq2_mul": "9k_fq2_mul", "fq2_sq": "11k_fq2_unaryILi0E",
-    "fq2_xi": "11k_fq2_unaryILi1E", "fq12_mul": "10k_fq12_mul", "fq12_sq": "9k_fq12_sq",
+    "mont_mul": "8k_binaryILi0E", "mod_add": "8k_binaryILi1E", "mod_sub": "12k_signed_sumI8SumDenseILi1ELin2ELi1EEE",
+    "mod_neg": "12k_signed_sumI8SumDenseILin1ELi0ELi1EEE", "mod_signed_sum": "12k_signed_sumI8SumTableE",
+    "fq2_mul": "9k_fq2_mul", "fq2_sq": "8k_fq2_sq",
+    "fq2_xi": "12k_signed_sumI8SumDenseILi33ELi0ELi2EEE", "fq12_mul": "10k_fq12_mul", "fq12_sq": "9k_fq12_sq",
     "fq12_mul024_pre": "17k_fq12_mul024_pre", "fq12_cyclo_sq": "15k_fq12_cyclo_sq",
     "pow_fixed": "11k_pow_fixed", "fq12_cyclo_sq_chain": "21k_fq12_cyclo_sq_chain",
     "double_step": "13k_double_step", "madd_step": "11k_madd_step",
@@ -224,11 +252,13 @@ PTXAS_NAMES_TEAM = {"point_add": "12k_curve_teamI9CurveTeamI2FqLb1EEE",
 PTXAS_NAMES_TEAM_G2 = {"point_add": "12k_curve_teamI9CurveTeamI3Fq2Lb1EEE",
                        "point_double": "12k_curve_teamI9CurveTeamI3Fq2Lb0EEE"}
 PTXAS_NAMES_NO_SQ = {"miller_step": "13k_miller_stepILb0E"}
+PTXAS_NAMES_FQ2 = {"mod_signed_sum": "12k_signed_sumI11Fq2SumTableE"}  # the Fq2 form of the level
 
 
 # kernels also fed edge_pairs(): fq.cuh's carry chains with carries and
-# borrows through whole words (fq2_mul's Karatsuba sums and products too)
-EDGE_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul")
+# borrows through whole words (fq2_mul's Karatsuba sums and products too; for
+# fq2_sq and fq2_xi a pair is an Fq2, xi's 9 x crossing several multiples of m)
+EDGE_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mod_neg", "fq2_mul", "fq2_sq", "fq2_xi")
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,6 +398,8 @@ def main():
         ptxas[name + "_g2"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     for name, frag in PTXAS_NAMES_NO_SQ.items():
         ptxas[name + "_no_sq"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
+    for name, frag in PTXAS_NAMES_FQ2.items():
+        ptxas[name + "_fq2"] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
     for suffix, names in (("_team", PTXAS_NAMES_TEAM), ("_team_g2", PTXAS_NAMES_TEAM_G2)):
         for name, frag in names.items():
             ptxas[name + suffix] = ptxas_stats(build.ptxas_log(build.ENTRIES[name][0]), frag)
@@ -513,7 +545,7 @@ def main():
         build.reset_counts()
         # (a) ragged batch with edge values, lead 3; both moduli where the
         #     kernel takes one
-        moduli = (P.Q, P.R_SCALAR) if name in ("mont_mul", "mod_add", "mod_sub", "mod_neg", "pow_fixed") else (P.Q,)
+        moduli = (P.Q, P.R_SCALAR) if name in BOTH_MODULI else (P.Q,)
         unit_structs = [tuple(st[1:]) if name == "fq2_mul" else tuple(st) for st in structs]
         batches = (B_RAGGED, B_STRADDLE) if name in TEAM_KERNELS else (B_RAGGED,)
         for modulus, batch in ((mod_, b_) for mod_ in moduli for b_ in batches):
@@ -536,6 +568,8 @@ def main():
             xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
             if name == "fq2_mul":  # (x, y) (y, x) and (x, x) (y, y)
                 ins = [limbs_on_card([[*xs, *xs], [*ys, *xs]]), limbs_on_card([[*ys, *ys], [*xs, *ys]])]
+            elif name in ("fq2_sq", "fq2_xi"):  # the Fq2 x + y u
+                ins = [limbs_on_card([xs, ys])]
             else:
                 ins = [limbs_on_card(xs), limbs_on_card(ys)][: len(structs)]
             got = kernel(ins, modulus, None)
@@ -545,9 +579,13 @@ def main():
                                            f"on {len(pairs)} edge pairs, modulus {modulus:#x}"))
             if name != "fq2_mul":
                 r_inv = pow(P.R_MONT, -1, modulus)
-                want = {"mont_mul": lambda x, y: x * y * r_inv, "mod_add": lambda x, y: x + y,
-                        "mod_sub": lambda x, y: x - y, "mod_neg": lambda x, y: -x}[name]
-                if P.limbs_to_ints(got.cpu().numpy()) != [want(x, y) % modulus for x, y in pairs]:
+                want = {"mont_mul": [lambda x, y: x * y * r_inv], "mod_add": [lambda x, y: x + y],
+                        "mod_sub": [lambda x, y: x - y], "mod_neg": [lambda x, y: -x],
+                        "fq2_sq": [lambda x, y: (x + y) * (x - y) * r_inv, lambda x, y: 2 * x * y * r_inv],
+                        "fq2_xi": [lambda x, y: 9 * x - y, lambda x, y: x + 9 * y]}[name]
+                coefficients = [got] if len(want) == 1 else list(got)
+                if any(P.limbs_to_ints(c.cpu().numpy()) != [w(x, y) % modulus for x, y in pairs]
+                       for c, w in zip(coefficients, want)):
                     fail(f"kernel {name} differs from Python's integers on the edge pairs, modulus {modulus:#x}")
         if build.COUNTS[name] != calls:
             fail(f"wrapper {name} counted {build.COUNTS[name]} launches for {calls} calls")
@@ -584,10 +622,6 @@ def main():
             "spill_load_bytes": (ptxas[name] or {}).get("spill_load_bytes"),
             "stack_bytes": (ptxas[name] or {}).get("stack_bytes"),
         }
-        if source == "kernels_fq.cu":  # one element a thread, 128 threads a block: the floor of its grid
-            elements = ins[0].numel() // P.NLIMBS // (2 if name.startswith("fq2_") else 1)
-            row["launch_floor_ms"] = launch_floor_ms(math.ceil(elements / 128))
-            row["above_floor_plus_bound_ms"] = ms - row["launch_floor_ms"] - row["bound_ms"]
         if name in TEAM_KERNELS:  # the launch at this shape, from the loaded library
             dims = (ctypes.c_longlong * 3)()
             rows, batch = math.prod(ins[0].shape[:-(len(structs[0]) + 2)]), ins[0].shape[-1]
@@ -599,6 +633,23 @@ def main():
                 "elements_per_block": math.ceil(rows * batch / dims[0]),
                 "shared_bytes_static": dims[2],
             })
+        if source == "kernels_fq.cu":  # the floor of its grid: one element a thread in blocks of 128, or the team's
+            elements = ins[0].numel() // P.NLIMBS // (2 if name.startswith("fq2_") else 1)
+            grid = (dims[0], dims[1]) if name in TEAM_KERNELS else (math.ceil(elements / 128), 128)
+            row["launch_floor_ms"] = launch_floor_ms(*grid)
+            row["above_floor_plus_bound_ms"] = ms - row["launch_floor_ms"] - row["bound_ms"]
+        if name == "fq2_sq":  # the team at every width, against the plain version, and timed
+            row["widths"] = {}
+            for lanes in FQ2_SQ_WIDTHS:  # above the main path's width, its lanes repeated
+                x = rand_field(rng, (2,), min(lanes, B_MAIN), P.Q, specials=True)
+                x = x.repeat(1, 1, -(-lanes // x.shape[-1]))[..., :lanes].contiguous()
+                want_x = plain([x], P.Q, None)
+                width_bytes = 2 * 4 * x.numel()
+                max_err = max(max_err, compare(name, kernel([x], P.Q, None), want_x, f"at B={lanes}"))
+                row["widths"][lanes] = {"ms": device_ms(lambda: kernel([x], P.Q, None), 50), "bound_ms": max(
+                    width_bytes / HBM_BYTES_PER_S * 1e3, lanes * 2 * MADDS_PER_PRODUCT / madd_per_s * 1e3)}
+            del x, want_x  # 268 MB at 2^20 lanes: not held while the main path's peak memory is read
+            row["max_abs_err"] = max_err
         if name == "fq12_cyclo_sq_chain":  # the shortest and the longest run of the main path too
             for n in (1, 5):
                 row[f"ms_n{n}"] = device_ms(lambda n=n: kernel(ins, P.Q, n), 50)
@@ -640,32 +691,23 @@ def main():
         if name.startswith("fq6_mul_operands"):
             a, b = fe(3, 2), (rand_field(rng, (1, 3, 2), batch, modulus, specials) if name.endswith("broadcast") else fe(3, 2))
             return tc.FQ6_MUL_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [b[..., i, :, :, :] for i in range(3)], none
-        if name == "fq6_mul_differences":
-            prods = rand_field(rng, (6,) + tuple(lead) + (2,), batch, modulus, specials)
 
-            def make():
-                u = torch.full((3,) + tuple(lead) + (2, 16, batch), -1, dtype=torch.int32, device=dev)
-                packed = torch.full(tuple(lead) + (3, 2, 16, batch), -1, dtype=torch.int32, device=dev)
-                outs = [u[0], u[1], u[2], packed[..., 2, :, :, :]]
-                return outs, outs
-            return tc.FQ6_MUL_DIFFERENCES, list(prods), make
-        if name == "fq6_mul_results":
-            srcs = rand_field(rng, (4,) + tuple(lead) + (2,), batch, modulus, specials)
+        def packed():
+            """A new packed Fq6 (*lead, 3, 2, 16, batch), its Fq2 coefficients the outputs."""
+            return fresh(tuple(lead) + (3, 2, 16, batch), -4)
 
-            def make():
-                packed = torch.full(tuple(lead) + (3, 2, 16, batch), -1, dtype=torch.int32, device=dev)
-                outs = [packed[..., 0, :, :, :], packed[..., 1, :, :, :]]
-                return outs, outs
-            return tc.FQ6_MUL_RESULTS, list(srcs), make
+        if name == "fq6_mul_results":  # the six products aa bb cc t12 t01 t02 into the packed result
+            return tc.FQ6_MUL_RESULTS, list(rand_field(rng, (6,) + tuple(lead) + (2,), batch, modulus, specials)), packed()
         if name == "fq6_inv_operands":
             a = fe(3, 2)
-            return tower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [fe(2)], none
+            return tower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)], none
         if name == "fq6_inv_norm_factors":
-            return tower.FQ6_INV_NORM_FACTORS, list(rand_field(rng, (7,) + tuple(lead) + (2,), batch, modulus, specials)), none
+            return tower.FQ6_INV_NORM_FACTORS, list(rand_field(rng, (6,) + tuple(lead) + (2,), batch, modulus, specials)), none
+        if name == "fq6_inv_norm":
+            return tower.FQ6_INV_NORM, list(rand_field(rng, (3,) + tuple(lead) + (2,), batch, modulus, specials)), none
         if name == "fq6_sub_nonresidue":
             p2 = rand_field(rng, (2,) + tuple(lead) + (3, 2), batch, modulus, specials)
-            srcs = [p2[0, ..., i, :, :, :] for i in range(3)] + [fe(2), p2[1, ..., 0, :, :, :], p2[1, ..., 1, :, :, :]]
-            return tower.FQ6_SUB_NONRESIDUE, srcs, fresh(tuple(lead) + (3, 2, 16, batch), -4)
+            return tower.FQ6_SUB_NONRESIDUE, [p2[k, ..., i, :, :, :] for k in range(2) for i in range(3)], packed()
         if name.startswith("mul_by_q_conj"):
             x, y = fe(2), fe(2)
 
@@ -677,11 +719,11 @@ def main():
             return terms, [x[..., 0, :, :], x[..., 1, :, :], y[..., 0, :, :], y[..., 1, :, :]], make
         raise KeyError(name)
 
-    def sum_call(terms, srcs, make, modulus, plain=False):
+    def sum_call(terms, srcs, make, modulus, plain=False, fq2=False):
         """The outputs of one call of the level, kernel or plain version."""
         out, views = make()
         fn = mc.mod_signed_sum_plain if plain else mc.mod_signed_sum
-        res = fn(terms, srcs, modulus, out=out)
+        res = fn(terms, srcs, modulus, out=out, fq2=fq2)
         return tuple(views if views is not None else res)
 
     def unique_elements(t):
@@ -697,19 +739,20 @@ def main():
             # (a) a ragged batch with the edge values at lead 3, both moduli
             for modulus in (P.Q, P.R_SCALAR):
                 terms, srcs, make = sum_level(name, (3,), B_RAGGED, modulus, specials=True)
-                got = sum_call(terms, srcs, make, modulus)
+                fq2 = any(len(term) == 3 for out_terms in terms for term in out_terms)  # a xi term: an Fq2 level
+                got = sum_call(terms, srcs, make, modulus, fq2=fq2)
                 torch.cuda.synchronize()
                 sum_calls += 1
-                sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, modulus, plain=True),
+                sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, modulus, True, fq2),
                                                f"on level {name} at B={B_RAGGED}, lead 3, modulus {modulus:#x}"))
             # (b) the main path's shape at B = 8192 (timed below)
             terms, srcs, make = sum_level(name, main_lead, B_MAIN, P.Q, specials=False)
-            got = sum_call(terms, srcs, make, P.Q)
+            got = sum_call(terms, srcs, make, P.Q, fq2=fq2)
             torch.cuda.synchronize()
             sum_calls += 1
-            sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, P.Q, plain=True),
+            sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(terms, srcs, make, P.Q, True, fq2),
                                            f"on level {name} at the main path's shape"))
-            timed_levels[name] = (terms, srcs, make, got)
+            timed_levels[name] = (terms, srcs, make, got, fq2)
         # (c) the carry and borrow edge pairs as the halves of a lead-3 Fq12, both
         #     moduli, against the plain version and Python's integers
         for modulus in (P.Q, P.R_SCALAR):
@@ -734,34 +777,55 @@ def main():
                 lanes_k = np.moveaxis(got[k].cpu().numpy(), -2, 0).reshape(16, -1)
                 if P.limbs_to_ints(lanes_k) != [value(x, y) % modulus for x, y in pairs]:
                     fail(f"mod_signed_sum differs from Python's integers on the edge pairs, output {k}, modulus {modulus:#x}")
+            # the same pairs fed to xi: s0 = (x, y) and s1 = (y, x), the halves
+            # as an Fq2's coefficients (sources read through a copy)
+            xi = mc.XI
+            xi_terms = (((0, 1, xi),), ((0, -1, xi),), ((0, 1, xi), (1, -1, xi)), ((1, 1), (0, -1, xi), (1, 1, xi), (0, 1)))
+            xi_srcs = [a.movedim(-5, -3), a.flip(-5).movedim(-5, -3)]
+            got = sum_call(xi_terms, xi_srcs, lambda: (None, None), modulus, fq2=True)
+            torch.cuda.synchronize()
+            sum_calls += 1
+            sum_err = max(sum_err, compare("mod_signed_sum", got, sum_call(xi_terms, xi_srcs, lambda: (None, None), modulus, True, True),
+                                           f"on {len(pairs)} edge pairs fed to xi, modulus {modulus:#x}"))
+            for k, values in enumerate(XI_EDGE_SUM_VALUES):
+                for c, value in enumerate(values):
+                    lanes_k = np.moveaxis(got[k].select(-3, c).cpu().numpy(), -2, 0).reshape(16, -1)
+                    if P.limbs_to_ints(lanes_k) != [value(x, y) % modulus for x, y in pairs]:
+                        fail(f"mod_signed_sum differs from Python's integers on the edge pairs fed to xi, output {k}, "
+                             f"coefficient {c}, modulus {modulus:#x}")
         if build.COUNTS["mod_signed_sum"] != sum_calls:
             fail(f"wrapper mod_signed_sum counted {build.COUNTS['mod_signed_sum']} launches for {sum_calls} calls")
         # each level at the main path's shape: card time, eager time, plain time, bound
-        for name, (terms, srcs, make, got) in timed_levels.items():
-            read = {i for out_terms in terms for i, _ in out_terms}
+        for name, (terms, srcs, make, got, fq2) in timed_levels.items():
+            read = {term[0] for out_terms in terms for term in out_terms}
             n_bytes = 4 * (sum(unique_elements(srcs[i]) for i in read) + sum(t.numel() for t in got))
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            word_ops = sum(len(t) for t in terms) * 16 * got[0].numel() // P.NLIMBS  # add or subtract, then reduce
+            # add or subtract, then reduce, a word each; a product by xi 10 such sums
+            word_ops = sum(10 if len(term) == 3 else 1 for t in terms for term in t) * 16 * got[0].numel() // P.NLIMBS
             ops_ms = word_ops / madd_per_s * 1e3
             out_arg, _ = make()
             sum_patterns[name] = {
-                "outputs": len(terms), "terms": sum(len(t) for t in terms), "sources": len(srcs),
+                "form": "fq2" if fq2 else "base field",
+                "outputs": len(terms), "terms": sum(len(t) for t in terms),
+                "xi_terms": sum(len(term) == 3 for t in terms for term in t), "sources": len(srcs),
                 "source_shape": list(srcs[0].shape), "lead": list(SUM_LEVELS[name]),
-                "ms": device_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg), 50),
-                "wrapper_ms": timed_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg), 50),
-                "plain_ms": timed_ms(lambda: sum_call(terms, srcs, make, P.Q, plain=True), 3),
+                "ms": device_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg, fq2=fq2), 50),
+                "wrapper_ms": timed_ms(lambda: mc.mod_signed_sum(terms, srcs, P.Q, out=out_arg, fq2=fq2), 50),
+                "plain_ms": timed_ms(lambda: sum_call(terms, srcs, make, P.Q, True, fq2), 3),
                 "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": n_bytes, "launch_floor_ms": launch_floor_ms(
-                    len(terms) * math.prod(srcs[0].shape[:-2]) * math.ceil(B_MAIN / 128)),
+                    len(terms) * math.prod(srcs[0].shape[:-3 if fq2 else -2]) * math.ceil(B_MAIN / 128)),
             }
         headline = sum_patterns[SUM_ROW_LEVEL]
         return {
             "name": "mod_signed_sum", "route": "cuda", "source": "bn_tpu_torch/csrc/kernels_fq.cu",
-            "replaces": "bn_tpu/ops/mont_pallas.py:375 (mod_sub_pallas) and :379 (mod_neg_pallas), a level at a time",
+            "replaces": "bn_tpu/ops/mont_pallas.py:375 (mod_sub_pallas), :379 (mod_neg_pallas) and :394 (fq2_xi_pallas), a level at a time",
             "launches": None, "max_abs_err": sum_err, "equal": True,
             **{k: headline[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "launch_floor_ms")},
             "library_ms": None, "shape": headline["source_shape"], "static": SUM_ROW_LEVEL, "levels": sum_patterns,
             **{k: (ptxas["mod_signed_sum"] or {}).get(k) for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
+            **{k + "_fq2": (ptxas["mod_signed_sum_fq2"] or {}).get(k)
+               for k in ("registers", "spill_store_bytes", "spill_load_bytes", "stack_bytes")},
         }
 
     kernel_rows.append(signed_sum_row())
@@ -919,6 +983,8 @@ def main():
         fail(f"the fused path launched {({k: counts[k] for k in FUSED_KERNELS})}, expected {FUSED_KERNELS}")
     if {k: counts[k] for k in SUM_LAUNCHES} != SUM_LAUNCHES:
         fail(f"the fused path's sums launched {({k: counts[k] for k in SUM_LAUNCHES})}, expected {SUM_LAUNCHES}")
+    if sum(counts.values()) != LAUNCHES_TOTAL["fused"]:
+        fail(f"the fused path launched {sum(counts.values())} kernels, expected {LAUNCHES_TOTAL['fused']}: {counts}")
 
     if tuple(out.shape) != (2, 3, 2, 16, B) or out.dtype != torch.int32 or out.device.type != "cuda":
         fail(f"pairing_batch returned {tuple(out.shape)} {out.dtype} on {out.device}")
@@ -948,10 +1014,11 @@ def main():
         out_unfused = ate.pairing_batch(ps, qs)
     torch.cuda.synchronize()
     counts_unfused = dict(build.COUNTS)
-    wrong = [k for k in PAIRING_KERNELS if (counts_unfused[k] != 0) == (k in FUSED_KERNELS)]
+    wrong = [k for k in PAIRING_KERNELS + SUM_SINGLE_OPS if (counts_unfused[k] != 0) == (k in FUSED_KERNELS)]
     wrong += [k for k in tuple(CURVE_KERNELS) + MILLER_KERNELS if counts_unfused[k]]
-    if wrong:
-        fail(f"the unfused path's launches of {wrong} are not as expected: {counts_unfused}")
+    if wrong or sum(counts_unfused.values()) != LAUNCHES_TOTAL["unfused"]:
+        fail(f"the unfused path's launches of {wrong} are not as expected, or not {LAUNCHES_TOTAL['unfused']} in all: "
+             f"{counts_unfused}")
     if not torch.equal(out_unfused, out[..., :B_UNFUSED]):
         fail("the unfused path differs from the fused path on the same lanes")
     qa = curve.to_affine(g2s, qs)
@@ -1000,6 +1067,9 @@ def main():
         fail(f"the Miller-step path launched the hoisted loop's kernels: {counts_miller}")
     if not torch.equal(out_miller, out):
         fail("the Miller-step path differs from the main path's result")
+    if sum(counts_miller.values()) != LAUNCHES_TOTAL["miller_step"] or counts_miller["fq2_xi"]:
+        fail(f"the Miller-step path launched {sum(counts_miller.values())} kernels, expected "
+             f"{LAUNCHES_TOTAL['miller_step']}, none of them fq2_xi: {counts_miller}")
 
     def event_ms(fn):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1398,6 +1468,10 @@ def main():
             row["launches"] = counts_miller["miller_step"]
             row["launches_square"] = instances["square"]
             row["launches_no_square"] = instances["no_square"]
+        elif row["name"] in SUM_SINGLE_OPS:  # its path: the unfused pairing_batch (its precompute)
+            row["launches"] = counts_unfused[row["name"]]
+            row["launches_fused"] = counts[row["name"]]
+            row["launches_miller_path"] = counts_miller[row["name"]]
         else:
             row["launches"] = counts[row["name"]]
             row["launches_unfused_1024"] = counts_unfused[row["name"]]

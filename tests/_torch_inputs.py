@@ -7,6 +7,7 @@ from bn_tpu_torch import ate
 from bn_tpu_torch import oracle as TO
 from bn_tpu_torch import params as TP
 from bn_tpu_torch.fields import tower as ttower
+from bn_tpu_torch.ops import mont_cuda as mc
 from bn_tpu_torch.ops import tower_cuda as tc
 
 def SPECIALS_FOR(m):
@@ -74,7 +75,8 @@ def curve_points(group: str, seed: int, shape):
     )
 
 
-# mod_signed_sum's cases: the levels the main path runs, at B = 6 and lead 3
+# mod_signed_sum's cases: the levels the main path runs, at B = 6 and lead 3,
+# base-field levels and Fq2 levels with xi terms
 SUM_B, SUM_LEAD = 6, 3
 
 
@@ -97,58 +99,77 @@ def _poisoned(shape):
     return torch.full(shape, -1, dtype=torch.int32)
 
 
+def _packed_results(lead):
+    """A poisoned packed Fq6 (*lead, 3, 2, 16, SUM_B) and its three Fq2
+    coefficients as the outputs of a level: (out argument, outputs read)."""
+    packed = _poisoned(tuple(lead) + (3, 2, 16, SUM_B))
+    return packed.movedim(-4, 0), list(packed.movedim(-4, 0))
+
+
 def signed_sum_case(name, modulus):
     """(terms, sources, out argument or None, the outputs as read back or None:
-    the result then) of case `name` of SIGNED_SUM_CASES."""
+    the result then, the Fq2 form or not) of case `name` of SIGNED_SUM_CASES."""
+    XI = mc.XI
     if name == "negation":
         (x,) = [sum_values(1, (SUM_LEAD, 2, SUM_B), modulus)]
-        return (((0, -1),),), [x], None, None
+        return (((0, -1),),), [x], None, None, False
     if name == "difference":
         x, y = (sum_values(s, (SUM_LEAD, 2, SUM_B), modulus) for s in (2, 3))
-        return (((0, 1), (1, -1)),), [x, y], None, None
+        return (((0, 1), (1, -1)),), [x, y], None, None, False
     if name == "repeated-source":
         x, y = (sum_values(s, (SUM_LEAD, SUM_B), modulus) for s in (4, 5))
         terms = (((0, 1), (0, 1), (0, -1), (1, 1)), ((0, -1), (0, -1)), ((1, -1), (0, 1), (1, -1), (1, 1)), ((1, 1),))
-        return terms, [x, y], None, None
+        return terms, [x, y], None, None, False
     if name in ("conj-fq2-axis", "conj-fq12-halves"):
         a = sum_values(6, (SUM_LEAD, 2, 3, 2, SUM_B), modulus)
         axis = -3 if name == "conj-fq2-axis" else -5
         out = _poisoned(a.shape)
-        return ttower.CONJ, [a.select(axis, 0), a.select(axis, 1)], out.movedim(axis, 0), list(out.movedim(axis, 0))
+        return ttower.CONJ, [a.select(axis, 0), a.select(axis, 1)], out.movedim(axis, 0), list(out.movedim(axis, 0)), False
     if name in ("fq6_mul-operands", "fq6_mul-operands-broadcast"):
         a = sum_values(7, (SUM_LEAD, 3, 2, SUM_B), modulus)
         b = sum_values(8, ((1 if name.endswith("broadcast") else SUM_LEAD), 3, 2, SUM_B), modulus)
-        return tc.FQ6_MUL_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [b[..., i, :, :, :] for i in range(3)], None, None
+        srcs = [a[..., i, :, :, :] for i in range(3)] + [b[..., i, :, :, :] for i in range(3)]
+        return tc.FQ6_MUL_OPERANDS, srcs, None, None, False
+    # fq6_mul's results from its six products (its differences and its xi
+    # products in one Fq2 level): at lead 1, as tower.fq6_mul has it; at lead
+    # 2, as fq12_inv has it; and with half the products broadcast along the 2.
+    # The lead-1 case keeps its id from the level of differences that
+    # FQ6_MUL_RESULTS replaced, so the test ids stay stable
     if name == "fq6_mul-differences":
-        prods = sum_values(9, (6, SUM_LEAD, 2, SUM_B), modulus)
-        packed, u = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B)), _poisoned((3, SUM_LEAD, 2, 16, SUM_B))
-        outs = [u[0], u[1], u[2], packed[..., 2, :, :, :]]
-        return tc.FQ6_MUL_DIFFERENCES, list(prods), outs, outs
+        out, read = _packed_results((SUM_LEAD,))
+        return tc.FQ6_MUL_RESULTS, list(sum_values(9, (6, SUM_LEAD, 2, SUM_B), modulus)), out, read, True
     if name == "fq6_mul-results":
-        srcs = sum_values(10, (4, SUM_LEAD, 2, SUM_B), modulus)
-        packed = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B))
-        outs = [packed[..., 0, :, :, :], packed[..., 1, :, :, :]]
-        return tc.FQ6_MUL_RESULTS, list(srcs), outs, outs
+        out, read = _packed_results((2, SUM_LEAD))
+        return tc.FQ6_MUL_RESULTS, list(sum_values(10, (6, 2, SUM_LEAD, 2, SUM_B), modulus)), out, read, True
+    if name == "fq6_mul-results-broadcast":
+        out, read = _packed_results((2, SUM_LEAD))
+        srcs = list(sum_values(18, (3, 2, SUM_LEAD, 2, SUM_B), modulus)) + list(sum_values(19, (3, 1, SUM_LEAD, 2, SUM_B), modulus))
+        return tc.FQ6_MUL_RESULTS, srcs, out, read, True
     if name == "fq6_inv-operands":
         a = sum_values(11, (SUM_LEAD, 3, 2, SUM_B), modulus)
-        return ttower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)] + [sum_values(12, (SUM_LEAD, 2, SUM_B), modulus)], None, None
+        return ttower.FQ6_INV_OPERANDS, [a[..., i, :, :, :] for i in range(3)], None, None, True
     if name == "fq6_inv-norm-factors":
-        return ttower.FQ6_INV_NORM_FACTORS, list(sum_values(13, (7, SUM_LEAD, 2, SUM_B), modulus)), None, None
+        return ttower.FQ6_INV_NORM_FACTORS, list(sum_values(13, (6, SUM_LEAD, 2, SUM_B), modulus)), None, None, True
+    if name == "fq6_inv-norm":
+        return ttower.FQ6_INV_NORM, list(sum_values(20, (3, SUM_LEAD, 2, SUM_B), modulus)), None, None, True
     if name == "fq12_inv-nonresidue":
         p = sum_values(14, (2, SUM_LEAD, 3, 2, SUM_B), modulus)
-        d = _poisoned((SUM_LEAD, 3, 2, 16, SUM_B))
-        srcs = [p[0, ..., i, :, :, :] for i in range(3)] + [sum_values(15, (SUM_LEAD, 2, SUM_B), modulus)]
-        srcs += [p[1, ..., 0, :, :, :], p[1, ..., 1, :, :, :]]
-        return ttower.FQ6_SUB_NONRESIDUE, srcs, d.movedim(-4, 0), list(d.movedim(-4, 0))
+        out, read = _packed_results((SUM_LEAD,))
+        return ttower.FQ6_SUB_NONRESIDUE, [p[k, ..., i, :, :, :] for k in range(2) for i in range(3)], out, read, True
     if name in ("mul_by_q-conj", "mul_by_q-conj-negated"):
         x, y = (sum_values(s, (SUM_LEAD, 2, SUM_B), modulus) for s in (16, 17))
         conj = _poisoned((2, SUM_LEAD, 2, 16, SUM_B))
         outs = [conj[k][..., c, :, :] for k in range(2) for c in range(2)]
         terms = ate.CONJ_X_NEG_Y if name.endswith("negated") else ate.CONJ_XY
-        return terms, [x[..., 0, :, :], x[..., 1, :, :], y[..., 0, :, :], y[..., 1, :, :]], outs, outs
+        return terms, [x[..., 0, :, :], x[..., 1, :, :], y[..., 0, :, :], y[..., 1, :, :]], outs, outs, False
+    if name == "xi-repeated-source":  # negated xi terms, first and later, and a source read as itself and times xi
+        x, y = (sum_values(s, (SUM_LEAD, 2, SUM_B), modulus) for s in (21, 22))
+        terms = (((0, -1, XI),), ((0, 1, XI), (0, -1), (1, 1, XI), (0, 1, XI)), ((1, -1), (1, -1, XI)), ((0, 1),))
+        return terms, [x, y], None, None, True
     raise KeyError(name)
 
 
 SIGNED_SUM_CASES = ["negation", "difference", "repeated-source", "conj-fq2-axis", "conj-fq12-halves", "fq6_mul-operands",
-                    "fq6_mul-operands-broadcast", "fq6_mul-differences", "fq6_mul-results", "fq6_inv-operands",
-                    "fq6_inv-norm-factors", "fq12_inv-nonresidue", "mul_by_q-conj", "mul_by_q-conj-negated"]
+                    "fq6_mul-operands-broadcast", "fq6_mul-differences", "fq6_mul-results", "fq6_mul-results-broadcast",
+                    "fq6_inv-operands", "fq6_inv-norm-factors", "fq6_inv-norm", "fq12_inv-nonresidue", "mul_by_q-conj",
+                    "mul_by_q-conj-negated", "xi-repeated-source"]

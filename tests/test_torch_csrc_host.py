@@ -27,8 +27,9 @@ cyclotomic squaring the chain's members and combines on fq12_team_block
 (kernel_fq12_cyclo_sq.cu), and for pow_fixed the group of csrc/fq_group.cuh
 (one Montgomery product split over T = 4 or 8 lanes, the lanes run phase by
 phase between their exchanges, in lane order and reversed, from poisoned
-values); that the kernels build and launch is what chip_smoke.py checks on
-the card.
+values), and for fq2_sq the team of two warps of csrc/team.cuh (Fq2SqTeam,
+its warps in order and reversed); that the kernels build and launch is what
+chip_smoke.py checks on the card.
 Tolerance: none, the limbs are compared exactly.
 """
 
@@ -60,7 +61,7 @@ _OPS = [
     "fq12_cyclo_sq_team", "fq12_cyclo_sq_team_reverse",
     "group_mul_4", "group_mul_4_reverse", "group_mul_8", "group_mul_8_reverse",
     "group_pow_4", "group_pow_4_reverse", "group_pow_8", "group_pow_8_reverse",
-    "fq12_mul024_line_team", "fq12_mul024_line_team_reverse",
+    "fq12_mul024_line_team", "fq12_mul024_line_team_reverse", "fq2_sq_team", "fq2_sq_team_reverse",
 ]
 # name -> (plain version, struct of each operand)
 _SPEC = {
@@ -111,7 +112,7 @@ def host_lib(tmp_path_factory):
     lib.host_carry.argtypes = [ctypes.c_int, ctypes.c_longlong] + [u32p] * 6
     lib.host_carry.restype = ctypes.c_int
     lib.host_signed_sum.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int8)] + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, u32p, ctypes.c_uint32]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, u32p, ctypes.c_uint32]
     lib.host_signed_sum.restype = ctypes.c_int
     return lib
 
@@ -358,6 +359,22 @@ def test_header_cyclo_sq_team_equals_plain(host_lib, batch, order):
     assert np.array_equal(got, _run_host(host_lib, "fq12_cyclo_sq", [a], TP.Q))
 
 
+@pytest.mark.parametrize("order", ["in-order", "reverse"])
+@pytest.mark.parametrize("batch", [5, 37, 64])
+def test_header_fq2_sq_team_equals_plain(host_lib, batch, order):
+    """kernels_fq.cu's fq2_sq team (Fq2SqTeam of team.cuh on team_block) at
+    lead 3: B = 5, one ragged block holds all 15 elements; B = 37, blocks
+    straddle the rows and the last is ragged; B = 64, none does.  Its two
+    warps in order and last to first, from poisoned shared state; equal to
+    the plain version, to tower.cuh's fq2_sq (one thread an element) and to
+    the Karatsuba product a a; edge values at both ends of the flat batch."""
+    a = _with_edge_tail(rand_field(368, (3, 2, batch)))
+    got = _run_host(host_lib, "fq2_sq_team" + ("_reverse" if order == "reverse" else ""), [a], TP.Q)
+    assert np.array_equal(got, mc.fq2_sq_plain(*_tensors([a]), TP.Q).numpy())
+    assert np.array_equal(got, _run_host(host_lib, "fq2_sq", [a], TP.Q))
+    assert np.array_equal(got, _run_host(host_lib, "fq2_mul", [a, a], TP.Q))
+
+
 ZERO_DIGIT_EXPONENT = 0xA0B7F03  # chip_smoke.py's: a short exponent with a zero digit inside
 FOUR_DIGIT_EXPONENT = 0xB0F1
 
@@ -502,17 +519,18 @@ def test_header_field_op_carry_chains_equal_python(host_lib, modulus, name):
     assert TP.limbs_to_ints(got[0]) == [_FIELD_OPS[name](x, y, modulus) for x, y in pairs]
 
 
-def _host_signed_sum(lib, terms, sources, modulus, out=None):
+def _host_signed_sum(lib, terms, sources, modulus, out=None, fq2=False):
     """signed_sum.cuh's per-thread body over every (output, row, lane), on the
     table bn_mod_signed_sum would get: the wrapper's own checks and operand
     descriptors, pointing into the CPU tensors' memory."""
-    codes, srcs, outs, result = mc._sum_setup(terms, sources, out)
-    srcs = [v if mc._dense_tail(v) else mc._view(v[0].contiguous()) for v in srcs]
+    codes, srcs, outs, result = mc._sum_setup(terms, sources, out, fq2)
+    srcs = [v if mc._dense_tail(v, fq2) else mc._view(v[0].contiguous()) for v in srcs]
     shape = srcs[0][2]
-    n1, n2, desc = mc._sum_operands(srcs + outs, shape[:-2])
+    rows_shape = shape[: -mc._tail(fq2)]
+    n1, n2, desc = mc._sum_operands(srcs + outs, rows_shape)
     words, inv32 = mc._mod_args(modulus)
-    rows = int(np.prod(shape[:-2], dtype=np.int64))
-    assert lib.host_signed_sum(desc, codes, len(srcs), len(outs), n1, n2, rows, shape[-1], words, inv32) == 0
+    rows = int(np.prod(rows_shape, dtype=np.int64))
+    assert lib.host_signed_sum(desc, codes, len(srcs), len(outs), n1, n2, rows, shape[-1], int(fq2), words, inv32) == 0
     return result
 
 
@@ -520,6 +538,17 @@ def _host_signed_sum(lib, terms, sources, modulus, out=None):
 # of a lead-3 Fq12 into the halves of two others
 _EDGE_LEVEL = (((0, 1), (1, -1)), ((0, -1),), ((0, 1), (1, 1)), ((1, 1), (0, -1), (0, -1), (1, -1)))
 _EDGE_VALUES = (lambda x, y: x - y, lambda x, y: -x, lambda x, y: x + y, lambda x, y: -2 * x)
+# the edge pairs fed to xi: an Fq2 level on s0 = (x, y) and s1 = (y, x), an
+# Fq2 coefficient of each half: xi s0, -xi s0, xi s0 - xi s1, s1 - xi s0 +
+# xi s1 + s0; each output's two coefficients as Python's values of (x, y)
+_XI_EDGE_LEVEL = (((0, 1, mc.XI),), ((0, -1, mc.XI),), ((0, 1, mc.XI), (1, -1, mc.XI)),
+                  ((1, 1), (0, -1, mc.XI), (1, 1, mc.XI), (0, 1)))
+_XI_EDGE_VALUES = (
+    (lambda x, y: 9 * x - y, lambda x, y: x + 9 * y),
+    (lambda x, y: y - 9 * x, lambda x, y: -x - 9 * y),
+    (lambda x, y: 10 * (x - y), lambda x, y: 8 * (y - x)),
+    (lambda x, y: (y + x) + (9 * y - x) - (9 * x - y), lambda x, y: (x + y) + (y + 9 * x) - (x + 9 * y)),
+)
 
 
 def _edge_level_case(modulus):
@@ -535,29 +564,40 @@ def _edge_level_case(modulus):
 
 
 @pytest.mark.parametrize("modulus", [TP.Q, TP.R_SCALAR], ids=["Fq", "Fr"])
-@pytest.mark.parametrize("case", SIGNED_SUM_CASES + ["edge-pairs"])
+@pytest.mark.parametrize("case", SIGNED_SUM_CASES + ["edge-pairs", "xi-edge-pairs"])
 def test_header_signed_sum_equals_plain(host_lib, case, modulus):
     """k_signed_sum's body (signed_sum.cuh) on the main path's levels at lead
-    3, sources read and results written through the wrappers' row strides
-    (slices of Fq12 and Fq6 elements, stacked operands, packed results), and
-    on the carry and borrow edge pairs as the halves of a lead-3 Fq12 (also
-    against Python's integers): equal to the plain signed sum."""
-    if case == "edge-pairs":
+    3, base-field and Fq2 levels, sources read and results written through
+    the wrappers' row strides (slices of Fq12 and Fq6 elements, stacked
+    operands, packed results), and on the carry and borrow edge pairs as the
+    halves of a lead-3 Fq12, also fed to xi as the Fq2 coefficients of the
+    halves (9 (m - 1) spans several multiples of m), against Python's
+    integers too: equal to the plain signed sum."""
+    fq2 = case == "xi-edge-pairs"
+    if case in ("edge-pairs", "xi-edge-pairs"):
         a, pairs = _edge_level_case(modulus)
-        outs = [torch.full(a.shape, -1, dtype=torch.int32) for _ in range(2)]
-        terms, sources = _EDGE_LEVEL, [a.select(-5, 0), a.select(-5, 1)]
-        out = [o.select(-5, h) for o in outs for h in range(2)]
-        read = out
+        if fq2:  # s0 = (x, y) and s1 = (y, x): the halves as an Fq2's coefficients, read through a copy
+            terms, sources = _XI_EDGE_LEVEL, [a.movedim(-5, -3), a.flip(-5).movedim(-5, -3)]
+            out = read = None
+        else:
+            outs = [torch.full(a.shape, -1, dtype=torch.int32) for _ in range(2)]
+            terms, sources = _EDGE_LEVEL, [a.select(-5, 0), a.select(-5, 1)]
+            out = read = [o.select(-5, h) for o in outs for h in range(2)]
     else:
-        terms, sources, out, read = signed_sum_case(case, modulus)
-    want = mc.mod_signed_sum_plain(terms, sources, modulus)
-    got = _host_signed_sum(host_lib, terms, sources, modulus, out)
+        terms, sources, out, read, fq2 = signed_sum_case(case, modulus)
+    want = mc.mod_signed_sum_plain(terms, sources, modulus, fq2=fq2)
+    got = _host_signed_sum(host_lib, terms, sources, modulus, out, fq2)
     got = list(got) if read is None else read
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     if case == "edge-pairs":
         for k, value in enumerate(_EDGE_VALUES):
             lanes = np.moveaxis(got[k].numpy(), -2, 0).reshape(16, -1)
             assert TP.limbs_to_ints(lanes) == [value(x, y) % modulus for x, y in pairs], k
+    if case == "xi-edge-pairs":
+        for k, values in enumerate(_XI_EDGE_VALUES):
+            for c, value in enumerate(values):
+                lanes = np.moveaxis(got[k].select(-3, c).numpy(), -2, 0).reshape(16, -1)
+                assert TP.limbs_to_ints(lanes) == [value(x, y) % modulus for x, y in pairs], (k, c)
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,7 +30,7 @@ enum {
   OP_FQ12_CYCLO_SQ_TEAM, OP_FQ12_CYCLO_SQ_TEAM_REVERSE,
   OP_GROUP_MUL_4, OP_GROUP_MUL_4_REVERSE, OP_GROUP_MUL_8, OP_GROUP_MUL_8_REVERSE,
   OP_GROUP_POW_4, OP_GROUP_POW_4_REVERSE, OP_GROUP_POW_8, OP_GROUP_POW_8_REVERSE,
-  OP_FQ12_MUL024_LINE_TEAM, OP_FQ12_MUL024_LINE_TEAM_REVERSE
+  OP_FQ12_MUL024_LINE_TEAM, OP_FQ12_MUL024_LINE_TEAM_REVERSE, OP_FQ2_SQ_TEAM, OP_FQ2_SQ_TEAM_REVERSE
 };
 
 // The group of fq_group.cuh on the host: the T lanes of one group as arrays
@@ -268,17 +268,24 @@ static void signed_sum_grid(const Table& t, const Mod& m) {
       for (int64_t b = 0; b < t.B; b++) signed_sum_element(t, k, row, b, m);
 }
 
-// bn_mod_signed_sum's table from the same host arrays; 1 when the entry
-// would refuse them.
-extern "C" int host_signed_sum(const long long* desc, const int8_t* terms, int n_src, int n_out, int n1, int n2,
-                               long long rows, long long B, const uint32_t* mod, uint32_t inv) {
-  Mod m;
-  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
-  m.inv = inv;
-  SumTable t;
+// bn_mod_signed_sum's table from the same host arrays (an Fq2SumTable with
+// fq2 set); 1 when the entry would refuse them.
+template <class Table>
+static int host_level(const long long* desc, const int8_t* terms, int n_src, int n_out, int n1, int n2,
+                      long long rows, long long B, const Mod& m) {
+  Table t;
   if (!signed_sum_table(t, desc, terms, n_src, n_out, n1, n2, rows, B)) return 1;
   signed_sum_grid(t, m);
   return 0;
+}
+
+extern "C" int host_signed_sum(const long long* desc, const int8_t* terms, int n_src, int n_out, int n1, int n2,
+                               long long rows, long long B, int fq2, const uint32_t* mod, uint32_t inv) {
+  Mod m;
+  for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
+  m.inv = inv;
+  return fq2 ? host_level<Fq2SumTable>(desc, terms, n_src, n_out, n1, n2, rows, B, m)
+             : host_level<SumTable>(desc, terms, n_src, n_out, n1, n2, rows, B, m);
 }
 
 // out2 is the second output of the step kernels.  n and extra are a kernel's
@@ -346,15 +353,25 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
     return 0;
   }
   if (op == OP_MOD_SUB) {  // kernels_fq.cu's entries: a table of one output, fixed at compile time
-    SumDense<1, -2> t;
+    SumDense<1, -2, 1> t;
     if (!signed_sum_dense(t, a, b, o, rows, B)) return 1;
     signed_sum_grid(t, m);
     return 0;
   }
   if (op == OP_MOD_NEG) {
-    SumDense<-1, 0> t;
+    SumDense<-1, 0, 1> t;
     if (!signed_sum_dense(t, a, nullptr, o, rows, B)) return 1;
     signed_sum_grid(t, m);
+    return 0;
+  }
+  if (op == OP_FQ2_XI) {
+    SumDense<BN_SUM_XI + 1, 0, 2> t;
+    if (!signed_sum_dense(t, a, nullptr, o, rows, B)) return 1;
+    signed_sum_grid(t, m);
+    return 0;
+  }
+  if (op == OP_FQ2_SQ_TEAM || op == OP_FQ2_SQ_TEAM_REVERSE) {  // kernels_fq.cu's team, warps in order or reversed
+    team_run(Fq2SqTeam{a, o}, rows, B, m, op == OP_FQ2_SQ_TEAM_REVERSE, [](int, Fq2SqTeam::Shared&) {});
     return 0;
   }
   for (int64_t t = 0; t < rows * B; t++) {
@@ -367,7 +384,6 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
       case OP_MOD_ADD: fq_store(o + o1, B, fq_add(fq_load(a + o1, B), fq_load(b + o1, B), m)); break;
       case OP_FQ2_MUL: fq2_store(o + o2, B, fq2_mul(fq2_load(a + o2, B), fq2_load(b + o2, B), m)); break;
       case OP_FQ2_SQ: fq2_store(o + o2, B, fq2_sq(fq2_load(a + o2, B), m)); break;
-      case OP_FQ2_XI: fq2_store(o + o2, B, fq2_xi(fq2_load(a + o2, B), m)); break;
       case OP_FQ12_MUL: fq12_store(o + o12, B, fq12_mul(fq12_load(a + o12, B), fq12_load(b + o12, B), m)); break;
       case OP_FQ12_SQ: fq12_store(o + o12, B, fq12_sq(fq12_load(a + o12, B), m)); break;
       case OP_FQ12_CYCLO_SQ: fq12_store(o + o12, B, fq12_cyclo_sq(fq12_load(a + o12, B), m)); break;

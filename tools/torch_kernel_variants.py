@@ -30,9 +30,10 @@ time them
 at the widths of ops/curve_cuda.py's crossover with --graph --batch 1 8192
 8448 10240 12288 16384 32768 65536 262144 1048576 (1: the MSM's Horner
 doublings; 8448: one wave of the team's blocks on 132 multiprocessors).
-The one-thread kernels of kernels_fq.cu (mont_mul, mod_add, mod_sub,
-mod_neg, fq2_mul, fq2_sq, fq2_xi, at the main path's shapes: FLAT_ROWS
-elements a lane) have the package's build alone, mont_mul also the
+The kernels of kernels_fq.cu (mont_mul, mod_add, mod_sub, mod_neg,
+fq2_mul, fq2_sq, fq2_xi, at the main path's shapes: FLAT_ROWS elements a
+lane; fq2_sq is a team of two warps on 32 elements) have the package's
+build alone, with --parent also the parent checkout's, mont_mul also the
 Montgomery product as lo/hi carry chains (LOHI_SOURCE) against fq.cuh's
 product on two arrays of even and odd products.  Every label has the variant
 "package": the package's source with ops/build.py's SOURCE_FLAGS (for a
