@@ -98,6 +98,19 @@ def ones(spec: FpSpec, batch_shape, device=None) -> torch.Tensor:
     return spec.one_const(default_device(device)).expand(shape).clone()
 
 
+def mul_small(spec: FpSpec, a, k: int):
+    """k * a for a small positive integer k by double-and-add on mod_add
+    (the 3x / 8x / 9x constants of the curve and tower formulas)."""
+    if k < 1:
+        raise ValueError(f"mul_small: k must be a positive integer, got {k}")
+    res = a
+    for bit in P.bits_msb_first(k)[1:]:
+        res = double(spec, res)
+        if bit:
+            res = add(spec, res, a)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # fixed-exponent powering and Fermat inversion
 # ---------------------------------------------------------------------------

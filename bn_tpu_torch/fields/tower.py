@@ -32,6 +32,7 @@ import torch
 from .. import oracle as O
 from .. import params as P
 from ..ops import backend
+from ..ops import limbs as lb
 from ..ops import mont_cuda as mc
 from ..ops import tower_cuda as tc
 from . import fp
@@ -99,22 +100,14 @@ def _fq2_const(t) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _frob_consts_np():
-    """Montgomery-form Frobenius gamma tables, derived in oracle.frob_coeffs."""
+def _frob_consts():
+    """Montgomery-form Frobenius gamma tables, derived in oracle.frob_coeffs:
+    (2, L, 1) numpy constants for fq2_mul_const."""
     fq6_c1, fq6_c2, fq12_c1 = O.frob_coeffs()
     return (
         tuple(_fq2_const(t) for t in fq6_c1),
         tuple(_fq2_const(t) for t in fq6_c2),
         tuple(_fq2_const(t) for t in fq12_c1),
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def _frob_consts(device_str: str):
-    dev = torch.device(device_str)
-    return tuple(
-        tuple(torch.from_numpy(c.astype(np.int32)).to(dev) for c in table)
-        for table in _frob_consts_np()
     )
 
 
@@ -169,6 +162,13 @@ def fq2_mul_by_xi(a):
 CONJ = (((0, 1),), ((1, -1),))
 
 
+def fq2_mul_const(a, const_np):
+    """Multiply by a static Fq2 constant, a Montgomery-form (2, L, 1) numpy
+    array: the constant is moved to a's device once (ops/limbs.py's cache),
+    then one fq2_mul."""
+    return fq2_mul(a, lb.const(const_np, a.device).view(2, P.NLIMBS, 1))
+
+
 def _negate_second(x0, x1, axis: int):
     """(x0, -x1) packed along `axis` of a new tensor: one signed-sum launch."""
     out = x0.new_empty(x0.shape[: x0.dim() + axis + 1] + (2,) + x0.shape[x0.dim() + axis + 1 :])
@@ -217,6 +217,41 @@ def fq6_mul(a, b):
     return tc.fq6_mul(_F, a, b)
 
 
+# fq6_sq's levels of signed sums.  The first reads a0 a1 a2 and writes both
+# stacked operands of the five products (a0 a0, a0 a1, d d, a1 a2, a2 a2 with
+# d = a0 - a1 + a2); the second reads the products s0 ab s2 bc s4 and writes
+# r0 = s0 + xi s3, r1 = s1 + xi s4 (s1 = ab + ab, s3 = bc + bc) and
+# s1 + s3; the third adds s2 - s0 - s4 to that: r2 = s1 + s2 + s3 - s0 - s4
+# has seven terms, and a level takes four an output.
+_FQ6_SQ_D = ((0, 1), (1, -1), (2, 1))  # d = a0 - a1 + a2
+FQ6_SQ_OPERANDS = (((0, 1),), ((0, 1),), _FQ6_SQ_D, ((1, 1),), ((2, 1),), ((0, 1),), ((1, 1),), _FQ6_SQ_D, ((2, 1),), ((2, 1),))
+FQ6_SQ_RESULTS = (((0, 1), (3, 1, XI), (3, 1, XI)), ((1, 1), (1, 1), (4, 1, XI)), ((1, 1), (1, 1), (3, 1), (3, 1)))
+FQ6_SQ_LAST = (((0, 1), (1, 1), (2, -1), (3, -1)),)
+
+
+def fq6_sq(a):
+    """CH-SQR2 (src/fields/fq6.rs:113-127): 5 Fq2 products, one stacked
+    fq2_mul, between three levels of signed sums."""
+    operands = mc.mod_signed_sum(FQ6_SQ_OPERANDS, [c6(a, i) for i in range(3)], P.Q)
+    p = fq2_mul(operands[:5], operands[5:])  # s0 ab s2 bc s4
+    out = p.new_empty(p.shape[1:-3] + (3,) + p.shape[-3:])
+    r = out.movedim(-4, 0)
+    s13 = torch.empty_like(p[0])
+    mc.mod_signed_sum(FQ6_SQ_RESULTS, p.unbind(0), P.Q, out=(r[0], r[1], s13), fq2=True)
+    mc.mod_signed_sum(FQ6_SQ_LAST, (s13, p[2], p[0], p[4]), P.Q, out=r[2:], fq2=True)
+    return out
+
+
+def fq6_scale_fq2(a, k):
+    """Multiply all three Fq2 components of a by the Fq2 element k: one
+    stacked fq2_mul."""
+    return fq2_mul(a, k.unsqueeze(-4))
+
+
+def fq6_neg(a):
+    return neg(a)
+
+
 # fq6_inv's three levels of signed sums, Fq2 levels.  The first reads a0 a1
 # a2 and writes both stacked operands of the six products (copies, and xi a2);
 # the second reads the products s_a0 a1xa2 s_a2 a0a1 s_a1 a0a2 and writes
@@ -244,8 +279,8 @@ def fq6_inv(a):
 def _fq6_frob_coeffs(x, power: int):
     """The Frobenius map's constant products on an Fq6 whose Fq2
     coefficients are already raised to q^power."""
-    c1t, c2t, _ = _frob_consts(str(x.device))
-    return pack6(c6(x, 0), fq2_mul(c6(x, 1), c1t[power % 6]), fq2_mul(c6(x, 2), c2t[power % 6]))
+    c1t, c2t, _ = _frob_consts()
+    return pack6(c6(x, 0), fq2_mul_const(c6(x, 1), c1t[power % 6]), fq2_mul_const(c6(x, 2), c2t[power % 6]))
 
 
 def fq6_frob(a, power: int):
@@ -292,11 +327,11 @@ def fq12_conj(a):
 def fq12_frob(a, power: int):
     """(src/fields/fq12.rs:90-95).  For an odd power every Fq2 coefficient
     is conjugated first, in one launch over the whole element."""
-    _, _, c12t = _frob_consts(str(a.device))
+    _, _, c12t = _frob_consts()
     x = fq2_frob(a, power)
     x0 = _fq6_frob_coeffs(c12(x, 0), power)
     # scale all three Fq2 components of x1 by the gamma constant
-    x1 = fq2_mul(_fq6_frob_coeffs(c12(x, 1), power), c12t[power % 12])
+    x1 = fq2_mul_const(_fq6_frob_coeffs(c12(x, 1), power), c12t[power % 12])
     return pack12(x0, x1)
 
 
@@ -349,10 +384,12 @@ def _cyclo_sq_run(res, n: int):
     return res
 
 
-def _exp_by_neg_z_cyclotomic(a):
-    """exp_by_neg_z for a PROVABLY cyclotomic input (the final-exp hard
-    chunk): NAF ladder with a^-1 = conj(a).  Mathematically equal to the
-    reference's binary ladder (src/fields/fq12.rs:97-101, 229-246)."""
+def fq12_cyclotomic_pow_z(a):
+    """a^z for the BN parameter z, for a in the cyclotomic subgroup (as the
+    final exponentiation's hard part gives it): a NAF ladder whose -1 digits
+    multiply by a^-1 = conj(a), which holds in that subgroup only.  Equal
+    there to the reference's binary ladder (src/fields/fq12.rs:229-246), which
+    squares with the cyclotomic squaring and so is bound to the same domain."""
     naf = _z_naf()
     a_conj = fq12_conj(a)
     assert naf[0] == 1
@@ -366,7 +403,13 @@ def _exp_by_neg_z_cyclotomic(a):
             res = fq12_mul(res, a if d == 1 else a_conj)
     if pending:
         res = _cyclo_sq_run(res, pending)
-    return fq12_conj(res)
+    return res
+
+
+def fq12_exp_by_neg_z(a):
+    """a^-z for a in the cyclotomic subgroup (src/fields/fq12.rs:97-101):
+    the conjugate of fq12_cyclotomic_pow_z."""
+    return fq12_conj(fq12_cyclotomic_pow_z(a))
 
 
 def final_exponentiation(f):
@@ -381,13 +424,13 @@ def final_exponentiation(f):
     # hard chunk: the reference's a..v chain (fq12.rs:54-84).  All inputs
     # to exp_by_neg_z here are cyclotomic (s = (f^(q^6-1))^(q^2+1) and its
     # cyclotomic closures), so the NAF ladder's conj-as-inverse is valid.
-    a2 = _exp_by_neg_z_cyclotomic(s)
+    a2 = fq12_exp_by_neg_z(s)
     b2 = fq12_cyclotomic_sq(a2)
     c2_ = fq12_cyclotomic_sq(b2)
     d2 = fq12_mul(c2_, b2)
-    e2 = _exp_by_neg_z_cyclotomic(d2)
+    e2 = fq12_exp_by_neg_z(d2)
     f2 = fq12_cyclotomic_sq(e2)
-    g2 = _exp_by_neg_z_cyclotomic(f2)
+    g2 = fq12_exp_by_neg_z(f2)
     h2 = fq12_conj(d2)
     i2 = fq12_conj(g2)
     j2 = fq12_mul(i2, e2)

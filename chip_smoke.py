@@ -110,7 +110,25 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     `sharded_pairing_product` of the main path's 8192 pairs equal to
     `fq12_fold_product` of the main path's result, `sharded_msm` of the
     first 2^12 points and scalars of `msm_path` equal to the oracle's sum, a
-    CUDA tensor under a gloo group refused; the seconds of each;
+    CUDA tensor under a gloo group refused; the seconds of each; and the
+    dry run of __graft_entry_torch__ (dryrun_multichip(1)) in that
+    group, its rank's product equal to the oracle's product of its two
+    pairings, then once more on its spawn path (one rank, its own process,
+    NCCL) after the group is destroyed;
+ 9c. `trials`: the reference's field and group property trials
+    (tools/torch_trials.py, the seeds and draws of tests/test_field_trials.py
+    and tests/test_group_trials.py) at N_TRIALS = 10,000 lanes, not a
+    multiple of 32: for Fr, Fq, Fq2, Fq6 and Fq12 the inversion walk, 0^-1 =
+    0, random inversions and cancellations, associativity, squaring,
+    distributivity, the add / neg walk and a + (-a) = 0, for Fq2 the spot
+    inversion, for G1 and G2 addition, doubling, Diffie-Hellman and the
+    do / undo walk (ladders of 10,000 lanes); one product a field and one
+    point a group against the oracle at lanes 0, 5,000 and 9,999; every
+    lane must pass.  The seconds of each trial, and the launches of one
+    `curve.mul` at this width by design: `point_double` one thread a point,
+    `point_add` the team (THREAD_FROM_LANES);
+ 9d. `entry`: __graft_entry_torch__.entry()'s function on its arguments on
+    the card, all 8 lanes equal to the oracle's pairings;
 10. prints one JSON line per phase, the card line, the `kernels` line and the
     last line {"ok": true, "device": {...}}.
 
@@ -230,6 +248,7 @@ XI_EDGE_SUM_VALUES = (
 MILLER_STEPS = {"square": 64, "no_square": 38}  # miller_step launches of one pairing_batch, by instance
 LOG2_MSM = 20  # the MSM's size: 2^20 points
 MSM_C = 16  # its window
+N_TRIALS = 10000  # the reference's field trial width; 312 blocks of 32 and 16 lanes
 B_CURVE_CHECK = 1024  # lanes of the curve.mul comparison, switch on against off
 FUSED_KERNELS = {"pow_fixed": 3, "fq12_cyclo_sq_chain": 69, "double_step": 64, "madd_step": 38}  # launches per pairing_batch
 UNFUSED = dict(pow_fixed=False, cyclo_chain=False, ladder=False)
@@ -1433,6 +1452,10 @@ def main():
 
     from bn_tpu_torch.parallel import dist
 
+    import __graft_entry_torch__ as ge  # beside this script, as bn_tpu_torch is
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+
     dist_s = {}
     with tempfile.TemporaryDirectory() as rdv:
         device = dist.init_group("nccl", f"file://{rdv}/rendezvous", 1, 0)
@@ -1451,11 +1474,63 @@ def main():
                 fail("a CUDA tensor under a gloo group was not refused")
             except ValueError:
                 pass
+            _, dist_s["dryrun_multichip_in_group"] = clock(lambda: ge.dryrun_multichip(1))
+            dry, dist_s["dryrun_rank"] = clock(lambda: ge._dryrun_rank(device))
+            dry_want = O.FQ12_ONE
+            for k_ in range(1, ge.PAIRS_PER_RANK + 1):
+                dry_want = O.fq12_mul(dry_want, O.pairing(O.g1_mul(O.G1_ONE, 10 + k_), O.g2_mul(O.G2_ONE, 20 + k_)))
+            if tower.fq12_from_device(dry) != [dry_want]:
+                fail("the dry run's product differs from the oracle's")
         finally:
             tdist.destroy_process_group()
+    _, dist_s["dryrun_multichip_spawned"] = clock(lambda: ge.dryrun_multichip(1))
     emit({"phase": "dist_path", "backend": "nccl", "world_size": 1, "device": str(device),
           "pairs": B, "msm_points": n_small, "seconds": dist_s, "product_equals_fold": True,
-          "msm_oracle_exact": True, "gloo_refuses_cuda": True, "card": smi})
+          "msm_oracle_exact": True, "gloo_refuses_cuda": True,
+          "dryrun_multichip": {"in_group": True, "spawned": True, "product_equals_oracle": True}, "card": smi})
+
+    # ---- phase 9c: the reference's field and group trials at 10,000 lanes -------
+    import torch_trials as TT
+
+    by_design, ladder_s = {}, {}
+    for G in TT.GROUPS.values():
+        base = curve.one(G.spec, (N_TRIALS,))
+        k_trials = fp.to_device(fp.FR, TT.scalars(np.random.default_rng(1), N_TRIALS))
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        curve.mul(G.spec, base, k_trials)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ladder_s[G.name] = {"enqueued": t1 - t0, "done": time.perf_counter() - t0}
+        by_design[G.name] = {f"{k_}/{d_}": v for (k_, d_), v in build.INSTANCE_COUNTS.items()}
+        if by_design[G.name] != {"point_double/thread": 256, "point_add/team": 256}:
+            fail(f"curve.mul of {N_TRIALS} {G.name} lanes launched {by_design[G.name]} by design")
+    seconds, trial_rows = {}, []
+    for trial, x in TT.trials():
+        res, sec = TT.timed(trial, x, dev, N_TRIALS)
+        if res.failed:
+            fail(f"trial {res.name} failed on {len(res.failed)} of {res.lanes} lanes, the first {res.failed[:8]}")
+        trial_rows.append({"trial": res.name, "lanes": res.lanes, "failed": 0, "s": sec})
+        seconds[x.name] = seconds.get(x.name, 0.0) + sec
+    emit({"phase": "trials", "n": N_TRIALS, "trials": trial_rows, "seconds_by_field_or_group": seconds,
+          "seconds_total": sum(seconds.values()), "oracle_lanes": TT.sample_lanes(N_TRIALS),
+          "curve_mul_launches_by_design": by_design, "curve_mul_s": ladder_s, "card": smi})
+
+    # ---- phase 9d: __graft_entry_torch__.entry() --------------------------------
+    entry_s = {}
+    (entry_fn, entry_args), entry_s["args"] = clock(ge.entry)
+    if any(t.device.type != "cuda" for pt in entry_args for t in pt):
+        fail("entry() did not put its arguments on the card")
+    calls = [clock(lambda: entry_fn(*entry_args)) for _ in range(3)]
+    entry_s["calls"] = [c_[1] for c_ in calls]
+    entry_want = [O.pairing(O.g1_mul(O.G1_ONE, 100 + k_), O.g2_mul(O.G2_ONE, 200 + k_))
+                  for k_ in range(1, ge.ENTRY_BATCH + 1)]
+    for gt, _ in calls:
+        if tuple(gt.shape) != (2, 3, 2, 16, ge.ENTRY_BATCH) or tower.fq12_from_device(gt) != entry_want:
+            fail("entry()'s pairing differs from the oracle's")
+    emit({"phase": "entry", "batch": ge.ENTRY_BATCH, "seconds": entry_s, "oracle_lanes_equal": ge.ENTRY_BATCH,
+          "card": smi})
 
     for row in kernel_rows:
         if row["name"] in CURVE_KERNELS:  # their path is the MSM; the API's ladders beside it

@@ -3,7 +3,9 @@ tests/test_torch_dist.py through torch.multiprocessing.spawn.
 
 It imports torch, numpy and the port only, never jax or bn_tpu, so that the
 ranks do not load the JAX package.  Each rank runs on one CPU thread and
-writes what it computed to <out_dir>/rank<r>.npz; the parent compares.
+writes what it computed to <out_dir>/rank<r>.npz; the parent compares.  The
+ranks also run the dry run of __graft_entry_torch__, dryrun_multichip, in
+their group, and keep the product its rank function returned.
 """
 
 import sys
@@ -11,6 +13,7 @@ import sys
 import numpy as np
 import torch
 
+import __graft_entry_torch__ as ge
 from bn_tpu_torch import curve
 from bn_tpu_torch.parallel import dist
 
@@ -26,8 +29,12 @@ def run(rank, world, init_file, out_dir, pairs, msm_case):
         product = dist.sharded_pairing_product(p, q)
         points, scalars, c = msm_case
         msm = dist.sharded_msm(points, scalars, c=c, device=device)
+        dry = []
+        rank_fn = ge._dryrun_rank
+        ge._dryrun_rank = lambda *args, **kwargs: dry.append(rank_fn(*args, **kwargs))
+        ge.dryrun_multichip(world)
         np.savez(f"{out_dir}/rank{rank}.npz", lanes=lanes.numpy(), product=product.numpy(),
                  msm_x=msm[0].numpy(), msm_y=msm[1].numpy(), msm_z=msm[2].numpy(),
-                 jax_loaded="jax" in sys.modules)
+                 dryrun=dry[0].numpy(), jax_loaded="jax" in sys.modules)
     finally:
         torch.distributed.destroy_process_group()

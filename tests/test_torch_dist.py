@@ -6,7 +6,9 @@ thread each, rendezvous through a file: the sharded pairing lane by lane, the
 sharded Gt product on every rank, and the sharded MSM on the inputs of
 tests/test_dist.py (seed 90, n = 21 over 4 ranks: shards of 5, 5, 5 and 6),
 which must have the Jacobian limbs of the JAX package's sharded_msm on a
-4-device mesh.  The ranks run tests/_torch_dist_worker.py, which imports no
+4-device mesh; and __graft_entry_torch__.dryrun_multichip(4) in the ranks'
+group, whose product of the 8 pairings of __graft_entry__.py's dry run must
+be the oracle's on every rank.  The ranks run tests/_torch_dist_worker.py, which imports no
 JAX; the JAX side runs here, at the shapes tests/test_dist.py compiles, while
 the ranks work.  Tolerance: none.
 """
@@ -118,6 +120,13 @@ def test_four_gloo_ranks(tmp_path):
         product = O.fq12_mul(product, w)
     for r in ranks:
         assert r["product"].shape == (2, 3, 2, 16, 1) and T.fq12_from_device(r["product"])[0] == product
+
+    # dryrun_multichip(4): the product of its 8 pairings on every rank
+    dry = O.FQ12_ONE
+    for k in range(1, 9):
+        dry = O.fq12_mul(dry, O.pairing(O.g1_mul(O.G1_ONE, 10 + k), O.g2_mul(O.G2_ONE, 20 + k)))
+    for r in ranks:
+        assert r["dryrun"].shape == (2, 3, 2, 16, 1) and T.fq12_from_device(r["dryrun"])[0] == dry
 
     # sharded_msm: the oracle's sum, and the JAX package's Jacobian limbs, on every rank
     expect = msm.msm_oracle(points, scalars)

@@ -91,11 +91,12 @@ def test_oracle_precompute_and_miller_equal_jax_package():
 
 
 def test_port_imports_without_jax():
-    """bn_tpu_torch and chip_smoke.py import where jax cannot be imported, and
-    pull in nothing of bn_tpu."""
+    """bn_tpu_torch, chip_smoke.py, the entry points and the trials tool
+    import where jax cannot be imported, and pull in nothing of bn_tpu."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['jaxlib'] = None\n"
-        "import bn_tpu_torch, chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import bn_tpu_torch, chip_smoke, __graft_entry_torch__, torch_trials\n"
         "import bn_tpu_torch.ops.build, bn_tpu_torch.ops.tower_cuda\n"
         "assert not any(m == 'bn_tpu' or m.startswith('bn_tpu.') for m in sys.modules)\n"
     )
