@@ -56,6 +56,7 @@ def test_group_api():
     assert (G1.zero(2).normalize()).is_zero().all()
 
 
+@pytest.mark.slow
 def test_pairing_api_bilinear():
     s = Fr.from_ints([12345])
     p = G1.one(1) * Fr.from_ints([777])
@@ -68,6 +69,7 @@ def test_pairing_api_bilinear():
     assert a * a.inverse() == Gt.one()
 
 
+@pytest.mark.slow
 def test_serialization_api():
     p = G1.random(3, 2)
     round_ = G1.from_bytes(p.to_bytes())
@@ -85,6 +87,7 @@ def test_example_dh():
     dh.main(batch=2, seed=21)
 
 
+@pytest.mark.slow
 def test_example_joux():
     import joux
 

@@ -87,16 +87,13 @@ def test_body_point_add_and_double(name, monkeypatch):
         np.testing.assert_array_equal(np.asarray(_untile(g, f)), np.asarray(w))
 
 
-@pytest.mark.skipif(
-    not __import__("os").environ.get("BN_SLOW_TESTS"),
-    reason="pallas-interpret compile of the fused curve kernels is "
-    "body-size-bound, not batch-bound: even the smaller DOUBLE kernel at a "
-    "single-block batch exceeded 15 min on XLA:CPU (measured 2026-08-21), "
-    "so no reduced-batch variant can run in default CI.  Body tests above "
-    "cover formulas+masks bit-exactly, the pack/grid plumbing is shared "
-    "with tower_pallas (interpret-covered there by default), and Mosaic "
-    "codegen is gated on hardware by bench.py / tpu_verify.py",
-)
+# The pallas-interpret compile of the fused curve kernels is body-size-bound,
+# not batch-bound: even the smaller DOUBLE kernel at a single-block batch
+# exceeded 15 min on XLA:CPU, so no reduced-batch variant fits the default
+# run.  The body tests above cover formulas and masks bit-exactly, the
+# pack/grid plumbing is shared with tower_pallas (interpret-covered there by
+# default), and Mosaic codegen is gated on hardware by bench.py / tpu_verify.py.
+@pytest.mark.slow
 @pytest.mark.parametrize("name", ["G1", "G2"])
 def test_wrapper_matches_jnp_path(name, monkeypatch):
     """Public wrappers through the interpret-mode pallas_call plumbing."""

@@ -29,6 +29,7 @@ def test_mesh_has_8_devices():
     assert len(jax.devices()) == 8
 
 
+@pytest.mark.slow
 def test_sharded_pairing_bitexact(inputs):
     p, q = inputs
     mesh = dist.make_mesh(4)
@@ -37,6 +38,7 @@ def test_sharded_pairing_bitexact(inputs):
     assert np.array_equal(single, sharded)
 
 
+@pytest.mark.slow
 def test_sharded_pairing_product(inputs):
     p, q = inputs
     mesh = dist.make_mesh(4)
@@ -51,6 +53,7 @@ def test_sharded_pairing_product(inputs):
     assert got == expect
 
 
+@pytest.mark.slow
 def test_sharded_msm_matches_oracle():
     """Shard-and-add MSM over a 4-device mesh vs the host oracle; uneven
     shard sizes exercise the padding path."""

@@ -6,10 +6,12 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+@pytest.mark.slow
 def test_entry_compiles():
     import __graft_entry__ as ge
 
@@ -19,6 +21,7 @@ def test_entry_compiles():
     assert np.asarray(out).shape[-1] == args[0][0].shape[-1]
 
 
+@pytest.mark.slow
 def test_dryrun_multichip():
     import __graft_entry__ as ge
 

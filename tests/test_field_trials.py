@@ -180,10 +180,17 @@ def _jitted(name):
     }
 
 
+def slow_at(*names):
+    """FIELDS' names, those given marked slow: their programs compile for
+    minutes on XLA:CPU."""
+    return [pytest.param(n, marks=pytest.mark.slow) if n in names else n for n in FIELDS]
+
+
 def _eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_can_invert_10000_walk(name):
     """a * a^-1 == 1 for a = 1..10000 and a = -1..-10000
@@ -200,6 +207,7 @@ def test_can_invert_10000_walk(name):
     _eq(prod, F.one(N))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_zero_has_no_inverse_convention(name):
     """The reference returns None for 0^-1; the branchless device Fermat
@@ -212,6 +220,7 @@ def test_zero_has_no_inverse_convention(name):
     _eq(prod, F.zero(N))
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_rand_inverse_10000(name):
     """10000 random inversions + cancellation (a*b)*a^-1 == b
@@ -226,7 +235,7 @@ def test_rand_inverse_10000(name):
     _eq(cancel, b)
 
 
-@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("name", slow_at("fq12"))
 def test_rand_multiplication_associativity(name):
     """(a*b)*c == a*(b*c) over 10000 random triples (the reference runs 250,
     src/fields/tests.rs:100-111; batching makes more free)."""
@@ -238,7 +247,7 @@ def test_rand_multiplication_associativity(name):
     _eq(lhs, rhs)
 
 
-@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("name", slow_at("fq12"))
 def test_rand_squaring(name):
     """a.squared() == a*a for random a and a 0..N sequential walk
     (reference: src/fields/tests.rs:37-50)."""
@@ -253,7 +262,7 @@ def test_rand_squaring(name):
     _eq(lhs, rhs)
 
 
-@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("name", slow_at("fq12"))
 def test_rand_distributivity(name):
     """(a+b)*(c+d) == ac+bc+ad+bd over 10000 random tuples
     (reference: src/fields/tests.rs:23-35 runs 100)."""
@@ -265,7 +274,7 @@ def test_rand_distributivity(name):
     _eq(lhs, rhs)
 
 
-@pytest.mark.parametrize("name", list(FIELDS))
+@pytest.mark.parametrize("name", slow_at("fq12"))
 def test_add_neg_random_walks(name):
     """The 10-step add/neg do/undo trial (reference: src/fields/tests.rs:
     52-89): two accumulators that differ by a fixed r stay in lockstep
@@ -291,6 +300,7 @@ def test_neg_cancels():
         _eq(F.add(a, F.neg(a)), F.zero(N))
 
 
+@pytest.mark.slow
 def test_inverse_matches_oracle_spot():
     """A device inverse value agrees with the exact host oracle on sampled
     lanes (ties the batched trials back to Python-int ground truth):

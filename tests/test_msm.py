@@ -35,6 +35,7 @@ def test_schedule_covers_all_points(rng):
         assert sorted(scheduled.tolist()) == sorted(nonzero.tolist())
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("n", [1, 7, 33])
 def test_msm_matches_oracle(rng, n):
     pts = [O.g1_mul(O.G1_ONE, rng.randrange(1, P.R_SCALAR)) for _ in range(n)]
@@ -47,6 +48,7 @@ def test_msm_matches_oracle(rng, n):
     assert O.g_eq(O.FQ_OPS, got, expect)
 
 
+@pytest.mark.slow
 def test_msm_spill_path_matches_oracle(rng):
     """Window-local spill scheduling (build_rounds + _accumulate_window with
     a traced window index): force spills with a tiny r_cap and SKEWED

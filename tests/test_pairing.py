@@ -50,6 +50,7 @@ def test_miller_loop(fixed_points):
     assert T.fq12_from_device(f)[0] == O.miller_loop(O.precompute_g2(qa), pa)
 
 
+@pytest.mark.slow
 def test_reduced_pairing_batch(fixed_points):
     """Batch containing the golden-vector pair, a random pair, and degenerate
     (infinity) pairs — all in one call."""
@@ -69,6 +70,7 @@ def test_reduced_pairing_batch(fixed_points):
     assert got == expect
 
 
+@pytest.mark.slow
 def test_bilinearity_device():
     random.seed(99)
     s = random.randrange(P.R_SCALAR)

@@ -11,15 +11,13 @@ Two tiers:
 
 2. INTERPRET tests: pallas_call(interpret=True) through the real
    BlockSpec/grid/pack plumbing.  The interpreter costs ~45s compile per
-   kernel on CPU (cached across runs), so only one kernel of each wrapper
-   shape runs by default; set BN_SLOW_TESTS=1 to interpret every fused
-   tower kernel as well.
+   kernel on CPU (cached across runs), so by default only mont_mul runs
+   through it; the tests marked `slow` (`-m slow`) interpret the struct=2
+   wrapper, the pow ladder and every fused tower kernel as well.
 
 Mosaic codegen itself is only checkable on hardware; that path is gated by
 bench.py's oracle check and benchmarks/tpu_verify.py.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -34,7 +32,6 @@ from bn_tpu.ops import mont_pallas as mp
 from bn_tpu.ops import tower_pallas as twp
 from bn_tpu.params import NLIMBS
 
-SLOW = bool(os.environ.get("BN_SLOW_TESTS"))
 B = mp.BLOCK_B  # one full (8, 128) tile batch
 RNG = np.random.default_rng(1234)
 
@@ -173,13 +170,10 @@ def test_body_fq12_sq_and_cyclo():
     _eq(gotc, tower.fq12_cyclotomic_sq(a))
 
 
-@pytest.mark.skipif(
-    not SLOW,
-    reason="interpreter compiles ~minutes per fused fq12 kernel; set "
-    "BN_SLOW_TESTS=1.  The chain's per-step math is _fq12_cyclo_sq_body "
-    "(body-tested above) and its grid-revisit carry pattern gets default "
-    "coverage via the cheap pow-ladder interpret test below.",
-)
+# The interpreter compiles for minutes per fused fq12 kernel.  The chain's
+# per-step math is _fq12_cyclo_sq_body (body-tested above); its grid-revisit
+# carry pattern is the pow-ladder interpret test's below, slow too.
+@pytest.mark.slow
 def test_fq12_cyclo_sq_chain_interpret_slow():
     """Grid-chained squaring kernel == n applications of cyclo_sq, through
     the real pallas_call (program_id select + output-block revisiting)."""
@@ -360,6 +354,7 @@ def test_body_pow_table():
         _eq(table[k], expect)
 
 
+@pytest.mark.slow
 def test_pow_fixed_pallas_interpret_small_chain():
     """Whole pow_fixed_pallas pipeline (pack, table kernel, grid-chained
     ladder) through the interpreter.  The exponent spans TWO digit chunks,
@@ -422,13 +417,14 @@ def test_interpret_mont_mul_with_padding():
     _both(lambda: fp.mul(fp.FQ, a, b))
 
 
+@pytest.mark.slow
 def test_interpret_fq2_mul_struct_spec():
     """The struct=2 BlockSpec variant of the wrapper."""
     a, b = _fq2(5), _fq2(5)
     _both(lambda: tower.fq2_mul(a, b))
 
 
-@pytest.mark.skipif(not SLOW, reason="interpreter compiles ~minutes per fused kernel; set BN_SLOW_TESTS=1")
+@pytest.mark.slow  # the interpreter compiles for minutes per fused kernel
 def test_interpret_fq12_kernels_slow():
     a, b = _fq12(5), _fq12(5)
     _both(lambda: tower.fq12_mul(a, b))
@@ -436,7 +432,7 @@ def test_interpret_fq12_kernels_slow():
     _both(lambda: tower.fq12_cyclotomic_sq(a))
 
 
-@pytest.mark.skipif(not SLOW, reason="interpreter compiles ~minutes per fused kernel; set BN_SLOW_TESTS=1")
+@pytest.mark.slow  # the interpreter compiles for minutes per fused kernel
 def test_interpret_miller_step_slow():
     f = _fq12(5)
     coeff = jnp.stack([_fq2(5), _fq2(5), _fq2(5)])

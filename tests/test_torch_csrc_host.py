@@ -91,7 +91,7 @@ def host_lib(tmp_path_factory):
     subprocess.run(
         ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(_ROOT / "bn_tpu_torch" / "csrc"),
          "-o", str(so), "-x", "c++", str(_ROOT / "tests" / "torch_csrc_host.cpp")],
-        check=True, capture_output=True,
+        check=True, capture_output=True, timeout=300,
     )
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p

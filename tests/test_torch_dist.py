@@ -3,20 +3,27 @@
 The fold functions against the JAX package's (bn_tpu.parallel.dist) and the
 oracle; then four gloo ranks in one torch.multiprocessing spawn, one CPU
 thread each, rendezvous through a file: the sharded pairing lane by lane, the
-sharded Gt product on every rank, and the sharded MSM on the inputs of
-tests/test_dist.py (seed 90, n = 21 over 4 ranks: shards of 5, 5, 5 and 6),
-which must have the Jacobian limbs of the JAX package's sharded_msm on a
-4-device mesh; and __graft_entry_torch__.dryrun_multichip(4) in the ranks'
-group, whose product of the 8 pairings of __graft_entry__.py's dry run must
-be the oracle's on every rank.  The ranks run tests/_torch_dist_worker.py, which imports no
-JAX; the JAX side runs here, at the shapes tests/test_dist.py compiles, while
-the ranks work.  Tolerance: none.
+sharded Gt product on every rank, the sharded MSM on the inputs of
+tests/test_dist.py (seed 90, n = 21 over 4 ranks: shards of 5, 5, 5 and 6)
+against the oracle, and __graft_entry_torch__.dryrun_multichip(4) in the
+ranks' group, whose product of the 8 pairings of __graft_entry__.py's dry run
+must be the oracle's on every rank.  A second spawn of four ranks runs that
+sharded MSM alone, whose Jacobian limbs must be those of the JAX package's
+sharded_msm on a 4-device mesh: that compile is the cost of the second
+test, the ranks' pairings that of the first.  The ranks
+run tests/_torch_dist_worker.py, which imports no JAX; the JAX side runs
+here, at the shapes tests/test_dist.py compiles, while the ranks work.
+Tolerance: none.  The spawned ranks are joined against a deadline inside the
+per-test limit: past it they are terminated, and the test fails with their
+exit codes.
 """
 
 import random
+import time
 
 import jax
 import numpy as np
+import pytest
 import torch
 import torch.multiprocessing as mp
 
@@ -29,9 +36,30 @@ from bn_tpu_torch.fields import tower as T
 from bn_tpu_torch.parallel import dist
 
 import _torch_dist_worker
+from conftest import GRACE, LIMIT
 from test_oracle import S1, S2
 
 CPU = "cpu"
+# seconds from the spawn to the ranks' deadline, inside the test's limit
+RANKS_DEADLINE = LIMIT - GRACE
+
+
+def join_by(ctx, deadline):
+    """Join the processes of a torch.multiprocessing context by the time
+    time.monotonic() reaches `deadline`; past it terminate every live one,
+    join them, and fail with their exit codes.  A process that raised is
+    reported by ctx.join as always."""
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            pytest.fail(f"spawned processes ran past their deadline; exit codes {[p.exitcode for p in ctx.processes]}")
 
 
 def _random_fq12(n):
@@ -93,22 +121,37 @@ def _msm_case():
     return points, scalars, 5
 
 
-def test_four_gloo_ranks(tmp_path):
-    """One spawn of four ranks; the checks of all three sharded functions
-    share it, because the ranks' pairings are the cost."""
-    ps, qs = _four_pairs()
-    points, scalars, c = _msm_case()
+def _spawn_ranks(tmp_path, pairs, msm_case):
+    """Four gloo ranks of _torch_dist_worker.run, not joined, and their
+    deadline."""
+    deadline = time.monotonic() + RANKS_DEADLINE
     ctx = mp.spawn(_torch_dist_worker.run, nprocs=4, join=False,
-                   args=(4, str(tmp_path / "rendezvous"), str(tmp_path), (ps, qs), (points, scalars, c)))
-    try:  # meanwhile, here: the single-process pairing, the oracle, the JAX package's sharded MSM
-        single = ate.pairing_batch(curve.to_device(curve.g1_spec(), ps, CPU), curve.to_device(curve.g2_spec(), qs, CPU))
-        want = [O.pairing(p, q) for p, q in zip(ps, qs)]
-        jax_msm = tuple(np.asarray(t) for t in jdist.sharded_msm(jdist.make_mesh(4), points, scalars, c=c))
-    finally:
-        while not ctx.join():
-            pass
+                   args=(4, str(tmp_path / "rendezvous"), str(tmp_path), pairs, msm_case))
+    return ctx, deadline
+
+
+def _rank_outputs(tmp_path):
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(4)]
     assert not any(bool(r["jax_loaded"]) for r in ranks)
+    return ranks
+
+
+def _rank_msm(rank):
+    return tuple(rank[k] for k in ("msm_x", "msm_y", "msm_z"))
+
+
+def test_four_gloo_ranks(tmp_path):
+    """One spawn of four ranks; the checks of all three sharded functions
+    against the oracle share it, because the ranks' pairings are the cost."""
+    ps, qs = _four_pairs()
+    points, scalars, c = _msm_case()
+    ctx, deadline = _spawn_ranks(tmp_path, (ps, qs), (points, scalars, c))
+    try:  # meanwhile, here: the single-process pairing and the oracle
+        single = ate.pairing_batch(curve.to_device(curve.g1_spec(), ps, CPU), curve.to_device(curve.g2_spec(), qs, CPU))
+        want = [O.pairing(p, q) for p, q in zip(ps, qs)]
+    finally:
+        join_by(ctx, deadline)
+    ranks = _rank_outputs(tmp_path)
 
     # sharded_pairing: rank r holds lane r
     assert T.fq12_from_device(np.concatenate([r["lanes"] for r in ranks], axis=-1)) == want
@@ -128,10 +171,35 @@ def test_four_gloo_ranks(tmp_path):
     for r in ranks:
         assert r["dryrun"].shape == (2, 3, 2, 16, 1) and T.fq12_from_device(r["dryrun"])[0] == dry
 
-    # sharded_msm: the oracle's sum, and the JAX package's Jacobian limbs, on every rank
+    # sharded_msm: the oracle's sum on every rank
     expect = msm.msm_oracle(points, scalars)
     for r in ranks:
-        got = tuple(r[k] for k in ("msm_x", "msm_y", "msm_z"))
+        assert O.g_eq(O.FQ_OPS, curve.from_device(curve.g1_spec(), tuple(torch.from_numpy(t) for t in _rank_msm(r)))[0], expect)
+
+
+def test_four_gloo_ranks_msm_has_the_limbs_of_the_jax_package(tmp_path):
+    """A spawn of four ranks that run the sharded MSM alone: the oracle's
+    sum, and the JAX package's Jacobian limbs, on every rank."""
+    points, scalars, c = _msm_case()
+    ctx, deadline = _spawn_ranks(tmp_path, None, (points, scalars, c))
+    try:  # meanwhile, here: the JAX package's sharded MSM
+        jax_msm = tuple(np.asarray(t) for t in jdist.sharded_msm(jdist.make_mesh(4), points, scalars, c=c))
+    finally:
+        join_by(ctx, deadline)
+    expect = msm.msm_oracle(points, scalars)
+    for r in _rank_outputs(tmp_path):
+        got = _rank_msm(r)
         assert O.g_eq(O.FQ_OPS, curve.from_device(curve.g1_spec(), tuple(torch.from_numpy(t) for t in got))[0], expect)
         for g, j in zip(got, jax_msm):
             assert np.array_equal(g.astype(np.uint32), j)
+
+
+def test_join_by_terminates_a_sleeping_child():
+    """A spawned child that would sleep for ten minutes is terminated at a
+    deadline 2 s away, and the join fails with its exit code (-SIGTERM)."""
+    start = time.monotonic()
+    ctx = mp.spawn(_torch_dist_worker.sleep, nprocs=1, join=False, args=(600,))
+    with pytest.raises(pytest.fail.Exception, match=r"past their deadline; exit codes \[-15\]"):
+        join_by(ctx, time.monotonic() + 2)
+    assert not ctx.processes[0].is_alive()
+    assert time.monotonic() - start < 60

@@ -101,5 +101,5 @@ def test_port_imports_without_jax():
         "assert not any(m == 'bn_tpu' or m.startswith('bn_tpu.') for m in sys.modules)\n"
     )
     root = Path(__file__).resolve().parent.parent
-    done = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
+    done = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr

@@ -81,6 +81,7 @@ def test_fq6_ops(rng):
         ]
 
 
+@pytest.mark.slow
 def test_fq12_ops(rng):
     a = [rfq12(rng) for _ in range(B)]
     b = [rfq12(rng) for _ in range(B)]
@@ -127,6 +128,7 @@ def test_final_exponentiation(rng):
     assert T.fq12_from_device(got) == [O.final_exponentiation(x) for x in a]
 
 
+@pytest.mark.slow
 def test_final_exp_straight_matches_tape(rng):
     """The straight-line chain (_final_exp_straight) is what the Pallas
     backend runs, but CI uses the jnp backend, where final_exponentiation
@@ -142,6 +144,7 @@ def test_final_exp_straight_matches_tape(rng):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(tape))
 
 
+@pytest.mark.slow
 def test_exp_by_neg_z_cyclotomic_naf(rng):
     """The NAF conj-as-inverse ladder is only valid for cyclotomic inputs;
     feed it elements of the cyclotomic subgroup (easy-part outputs) and
