@@ -1,6 +1,7 @@
 // What the Fq12 teams share: the layouts they read and write, written here
-// once, the Fq12 product split over a team of 18 members, and the
-// one-barrier team that runs any such product (fq12_team_block, at the end).
+// once, the member order of the Fq12 product's 18 Fq2 products, the parts
+// of an Fq6 product's recombination, and the one-barrier team that runs the
+// Fq12 square and sparse products (fq12_team_block, at the end).
 //
 // Layouts.  An Fq12 element is (rows, 2, 3, 2, 16, B), leading axes folded
 // into rows: element e is row e / B, batch index e % B, and its coefficient
@@ -19,15 +20,17 @@
 // and, on that pair of Fq6 operands x, y,
 //   j = 0: (x0, y0)  1: (x1, y1)  2: (x2, y2)
 //       3: (x1 + x2, y1 + y2)  4: (x0 + x1, y0 + y1)  5: (x0 + x2, y0 + y2).
-// The scratch holds product w at entries 2w, 2w + 1 of fq_tab_store's layout.
-// After a barrier, combine c, 0 <= c < 6, reads them and returns output
-// coefficient out.c{c/3}.c{c%3}.
+// The Fq12 square's team (fq12_sq_team.cuh) takes the same order.  The
+// product's own team, with lazy reduction, is fq12_mul_team.cuh.
 //
-// Every sum and difference is taken modulo q and every product reduced at
-// once, so each intermediate is the canonical element: a team's result is
-// that of tower.cuh's one-thread formula, bit for bit, whatever the order the
-// members and the combines run in.  Plain C++ like the other headers, so the
-// host tests run the same code.
+// In fq12_team_block's teams the scratch holds product w at entries 2w,
+// 2w + 1 of fq_tab_store's layout; after a barrier, combine c, 0 <= c < 6,
+// reads them and returns output coefficient out.c{c/3}.c{c%3}.  Every sum and
+// difference is taken modulo q and every product reduced at once, so each
+// intermediate is the canonical element: a team's result is that of
+// tower.cuh's one-thread formula, bit for bit, whatever the order the members
+// and the combines run in.  Plain C++ like the other headers, so the host
+// tests run the same code.
 #pragma once
 
 #include "team.cuh"
@@ -35,30 +38,6 @@
 
 #define BN_TEAM_MEMBERS 18  // Fq2 products of one Fq12 product
 #define BN_TEAM_COMBINES 6  // Fq2 coefficients of the result
-
-// Fq2 coefficient s (0..2) of Fq6 operand k of the element at p: a.c0.c{s},
-// a.c1.c{s} or their sum.  Coefficient c{i}.c{s} starts at p + (3i + s)*2*16*stride.
-BN_DEV Fq2 fq12_team_coeff(const int32_t* p, int64_t stride, int k, int s, const Mod& m) {
-  const int32_t* lo = p + (int64_t)s * 2 * BN_NLIMB * stride;
-  const int32_t* hi = lo + (int64_t)6 * BN_NLIMB * stride;
-  if (k == 0) return fq2_load(lo, stride);
-  if (k == 1) return fq2_load(hi, stride);
-  return team_add(fq2_load(lo, stride), fq2_load(hi, stride), m);
-}
-
-// The operand of Fq2 product j on Fq6 operand k: one coefficient or the sum of two.
-BN_DEV Fq2 fq12_team_operand(const int32_t* p, int64_t stride, int k, int j, const Mod& m) {
-  if (j < 3) return fq12_team_coeff(p, stride, k, j, m);
-  int s = j == 3 ? 1 : 0, t = j == 4 ? 1 : 2;
-  return team_add(fq12_team_coeff(p, stride, k, s, m), fq12_team_coeff(p, stride, k, t, m), m);
-}
-
-// Member w's Fq2 product, 3 base-field products.  It reads from a and b only
-// the coefficients it needs: at most four Fq2 of each.
-BN_DEV Fq2 fq12_mul_member(int w, const int32_t* a, const int32_t* b, int64_t stride, const Mod& m) {
-  int k = w / 6, j = w % 6;
-  return fq2_mul(fq12_team_operand(a, stride, k, j, m), fq12_team_operand(b, stride, k, j, m), m);
-}
 
 // The parts of Fq6 product k's recombination (fq6_mul), from its six Fq2
 // products aa, bb, cc, t12, t01, t02 in the scratch:
@@ -89,44 +68,6 @@ BN_DEV Fq2 fq12_team_c_minus_ab(const Fq2& xa, const Fq2& xb, const Fq2& xc, con
   return team_sub(xc, team_add(xa, xb, m), m);
 }
 
-// Output coefficient out.c{c/3}.c{c%3} of the Fq12 Karatsuba, with A, B, C
-// the three Fq6 products: out.c0 = v*B + A, out.c1 = C - A - B, where
-// v*(x0, x1, x2) = (xi x2, x0, x1).  xi is linear, so each output takes it
-// once, on the sum of what the recombinations would give it:
-//   c0 = xi(B.r2) + A.r0     = xi(r2_B + u_A) + aa_A
-//   c1 = B.r0 + A.r1         = xi(u_B + cc_A) + (aa_B + v_A)
-//   c2 = B.r1 + A.r2         = xi(cc_B) + (v_B + r2_A)
-//   c3 = C.r0 - A.r0 - B.r0  = xi(u_C - u_A - u_B) + (aa_C - aa_A - aa_B)
-//   c4 = C.r1 - A.r1 - B.r1  = xi(cc_C - cc_A - cc_B) + (v_C - v_A - v_B)
-//   c5 = C.r2 - A.r2 - B.r2.
-BN_DEV Fq2 fq12_mul_combine(int c, const uint32_t* prods, int stride, const Mod& m) {
-  if (c == 5)
-    return fq12_team_c_minus_ab(fq12_team_r2(prods, stride, 0, m), fq12_team_r2(prods, stride, 1, m),
-                                fq12_team_r2(prods, stride, 2, m), m);
-  Fq2 x, y;  // out = xi(x) + y
-  if (c == 0) {
-    x = team_add(fq12_team_r2(prods, stride, 1, m), fq12_team_u(prods, stride, 0, m), m);
-    y = fq12_team_prod(prods, stride, 0, 0);
-  } else if (c == 1) {
-    x = team_add(fq12_team_u(prods, stride, 1, m), fq12_team_prod(prods, stride, 0, 2), m);
-    y = team_add(fq12_team_prod(prods, stride, 1, 0), fq12_team_v(prods, stride, 0, m), m);
-  } else if (c == 2) {
-    x = fq12_team_prod(prods, stride, 1, 2);
-    y = team_add(fq12_team_v(prods, stride, 1, m), fq12_team_r2(prods, stride, 0, m), m);
-  } else if (c == 3) {
-    x = fq12_team_c_minus_ab(fq12_team_u(prods, stride, 0, m), fq12_team_u(prods, stride, 1, m),
-                             fq12_team_u(prods, stride, 2, m), m);
-    y = fq12_team_c_minus_ab(fq12_team_prod(prods, stride, 0, 0), fq12_team_prod(prods, stride, 1, 0),
-                             fq12_team_prod(prods, stride, 2, 0), m);
-  } else {
-    x = fq12_team_c_minus_ab(fq12_team_prod(prods, stride, 0, 2), fq12_team_prod(prods, stride, 1, 2),
-                             fq12_team_prod(prods, stride, 2, 2), m);
-    y = fq12_team_c_minus_ab(fq12_team_v(prods, stride, 0, m), fq12_team_v(prods, stride, 1, m),
-                             fq12_team_v(prods, stride, 2, m), m);
-  }
-  return team_add(team_xi(x, m), y, m);
-}
-
 // Element e of a (rows, 2, 3, 2, 16, B) tensor: row e / B, batch index e % B.
 BN_DEV int64_t fq12_offset(int64_t e, int64_t B) { return (e / B) * 12 * BN_NLIMB * B + (e % B); }
 
@@ -150,24 +91,6 @@ struct Fq12Shared {
   BN_DEV Fq2 operator()(int k) const { return fq2_tab_load(tab, BN_TEAM_LANES, k); }
 };
 
-// The product's member and combine as the skeleton calls them: the member
-// gets the element's index and loads its own operands; the combine gets it
-// too, and the product's reads only the scratch.
-struct Fq12MulMember {
-  const int32_t* a;
-  const int32_t* b;
-  BN_DEV Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    const int64_t off = fq12_offset(e, B);
-    return fq12_mul_member(w, a + off, b + off, B, m);
-  }
-};
-
-struct Fq12MulCombine {
-  BN_DEV Fq2 operator()(int c, int64_t, int64_t, const uint32_t* prods, int stride, const Mod& m) const {
-    return fq12_mul_combine(c, prods, stride, m);
-  }
-};
-
 // The two phases of a one-barrier team, plain C++ so the host tests run
 // them too: member t.w writes its Fq2 product for element t.e into the
 // scratch (`prods` at the thread's lane); after the barrier warps 0-5 each
@@ -186,8 +109,8 @@ BN_DEV void fq12_team_combines(int32_t* o, const uint32_t* prods, const TeamLane
               combine(t.w, t.e, B, prods, BN_TEAM_LANES, m));
 }
 
-// The team of kernel_fq12_mul.cu, kernel_fq12_mul024.cu,
-// kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu and kernel_fq12_cyclo_sq.cu:
+// The team of kernel_fq12_mul024.cu, kernel_fq12_mul024_pre.cu,
+// kernel_fq12_sq.cu and kernel_fq12_cyclo_sq.cu:
 // MEMBERS warps, a scratch of MEMBERS Fq2 a lane, two phases (team_block in
 // team.cuh): the members, a barrier, the combines.
 template <int MEMBERS, class Member, class Combine>

@@ -102,23 +102,13 @@ k_curve_team(const Team team, int64_t n, int64_t B, Mod m) {
   team_block_on(team, *reinterpret_cast<typename Team::Shared*>(bn_curve_state), n, B, m, marks);
 }
 
-// The team's launch for n elements.  A state above 48 KB needs the kernel's
-// attribute raised first, once on each device (at the first launch there,
-// before any graph capture that follows it).
-#define BN_CURVE_DEVICES 64
+// The team's launch for n elements, its state in dynamic shared memory.
 template <class Team>
 static int curve_team_launch(const Team& team, long long n, long long B, const Mod& m, cudaStream_t s) {
-  static bool raised[BN_CURVE_DEVICES];
+  static bool raised[BN_DEVICES];
   const int bytes = (int)sizeof(typename Team::Shared);
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return (int)rc;
-  if (dev < 0 || dev >= BN_CURVE_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    rc = cudaFuncSetAttribute(k_curve_team<Team>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (rc != cudaSuccess) return (int)rc;
-    raised[dev] = true;
-  }
+  const int rc = bn_raise_shared(k_curve_team<Team>, bytes, raised);
+  if (rc != 0) return rc;
   k_curve_team<Team><<<bn_grid(n, BN_TEAM_LANES), Team::kWarps * BN_TEAM_LANES, bytes, s>>>(team, n, B, m);
   return (int)cudaGetLastError();
 }

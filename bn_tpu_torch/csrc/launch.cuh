@@ -37,6 +37,25 @@ static int bn_launch_dims(Kernel kernel, int per_block, int threads, long long n
   return (int)rc;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory: a launch above 48 KB
+// needs the kernel's attribute raised first, once on each device (at the
+// first launch there, before any graph capture that follows it).  `raised`
+// is the kernel's own flag a device, BN_DEVICES of them.
+#define BN_DEVICES 64
+template <class Kernel>
+static int bn_raise_shared(Kernel kernel, int bytes, bool* raised) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev < 0 || dev >= BN_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    raised[dev] = true;
+  }
+  return 0;
+}
+
 // Global thread index as a 64-bit value.
 __device__ __forceinline__ int64_t bn_tid() {
   return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;

@@ -100,10 +100,10 @@ NVCC_FLAGS = [
 # Per-source extra flags.  The Fq12, the Miller-step, the precompute-step and
 # the curve kernels call the Montgomery product out of line (see csrc/fq.cuh):
 # tools/torch_kernel_variants.py measures each 1.4 to 2 times faster that way
-# than with 18 to 54 inlined copies, and the teams of kernel_fq12_mul.cu and
-# kernel_fq12_cyclo_sq_chain.cu, 3 products a thread, 5 % and 6-7 % faster.
+# than with 18 to 54 inlined copies, and the team of
+# kernel_fq12_cyclo_sq_chain.cu, 3 products a thread, 6-7 % faster.
+# kernel_fq12_mul.cu's team calls no Montgomery product (csrc/fq_dw.cuh).
 SOURCE_FLAGS = {
-    "kernel_fq12_mul": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_sq": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_mul024_pre": ["-DBN_MUL_OUT_OF_LINE"],
     "kernel_fq12_mul024": ["-DBN_MUL_OUT_OF_LINE"],

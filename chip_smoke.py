@@ -17,7 +17,11 @@ NVIDIA H100 (or another sm_90a card) and the CUDA toolkit.  It
     `mod_neg`, `fq2_sq` and `fq2_xi` for both moduli and `fq2_mul` also on
     edge_pairs(), whose carries and borrows run through whole words, all but
     `fq2_mul` against Python's integers too; `fq2_sq`, a team of two warps,
-    also at B = 1, 37, 8192 and 2^16 to 2^20 lanes, each width timed; `pow_fixed` also against Python's
+    also at B = 1, 37, 8192 and 2^16 to 2^20 lanes, each width timed;
+    `fq12_mul`, with lazy reduction, also at 1024 lanes (the dist fold's
+    width) and 65536 (the benchmark's), that width timed too, its bound kept
+    on the reference's 54 reduced products with the lazy count of
+    multiply-adds beside it; `pow_fixed` also against Python's
     pow, with the Fermat exponent and one with a zero digit inside; the
     squaring chain at n = 1, 2, 5; the precompute steps on both outputs;
     `miller_step` in both instantiations, with and without the square;
@@ -196,6 +200,12 @@ TEAM_KERNELS = ("fq12_mul", "fq12_sq", "fq12_mul024_pre", "fq12_cyclo_sq", "fq12
 # one lane, a ragged block, the main path, and from 2^16 to 2^20, where the
 # bytes take over
 FQ2_SQ_WIDTHS = (1, 37, 8192, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+# fq12_mul's team, also held at the dist fold's width and the benchmark's,
+# the latter timed; its row keeps the bound of 54 reduced products
+# (KERNEL_TABLE) and gives the multiply-adds the lazy team does beside it:
+# 54 whole products of 128 and 12 reductions of 136
+FQ12_MUL_WIDTHS = (1024, 1 << 16)
+FQ12_MUL_LAZY_MADDS = 54 * 2 * 8 * 8 + 12 * MADDS_PER_PRODUCT
 # kernels held against their plain version for Fr as well as Fq
 BOTH_MODULI = ("mont_mul", "mod_add", "mod_sub", "mod_neg", "pow_fixed", "fq2_sq", "fq2_xi")
 B_STRADDLE = 37  # at lead 3: blocks of 32 straddle the rows, the last one ragged
@@ -668,6 +678,18 @@ def main():
                 row["widths"][lanes] = {"ms": device_ms(lambda: kernel([x], P.Q, None), 50), "bound_ms": max(
                     width_bytes / HBM_BYTES_PER_S * 1e3, lanes * 2 * MADDS_PER_PRODUCT / madd_per_s * 1e3)}
             del x, want_x  # 268 MB at 2^20 lanes: not held while the main path's peak memory is read
+            row["max_abs_err"] = max_err
+        if name == "fq12_mul":  # the fold's width and the benchmark's, against the plain version
+            row["lazy_madds_per_element"] = FQ12_MUL_LAZY_MADDS
+            row["widths"] = {}
+            for lanes in FQ12_MUL_WIDTHS:
+                xs = [rand_field(rng, st, lanes, P.Q, specials=True) for st in structs]
+                max_err = max(max_err, compare(name, kernel(xs, P.Q, None), plain(xs, P.Q, None), f"at B={lanes}"))
+                if lanes > B_MAIN:
+                    width_bytes = 3 * 4 * xs[0].numel()
+                    row["widths"][lanes] = {"ms": device_ms(lambda: kernel(xs, P.Q, None), 50), "bound_ms": max(
+                        width_bytes / HBM_BYTES_PER_S * 1e3, lanes * 54 * MADDS_PER_PRODUCT / madd_per_s * 1e3)}
+            del xs
             row["max_abs_err"] = max_err
         if name == "fq12_cyclo_sq_chain":  # the shortest and the longest run of the main path too
             for n in (1, 5):

@@ -7,9 +7,14 @@ there, each held against Python's integers below), so g++ builds them with
 tests/torch_csrc_host.cpp standing in for the kernels (same offsets, a loop
 instead of a grid).  This checks the
 formulas, the limb packing and the memory layout of all nineteen kernels
-without a GPU, and, for fq12_mul, fq12_mul024_pre, fq12_mul024 and fq12_sq,
-the teams of csrc/fq12_team.cuh, fq12_mul024_team.cuh and fq12_sq_team.cuh
-as their kernels schedule them (fq12_team_block: blocks of 32 elements, 18,
+without a GPU, and, for fq12_mul, the lazy team of csrc/fq12_mul_team.cuh
+as its kernel schedules it (team_block: blocks of 32 elements, the operands
+staged, 18 members' whole products into a scratch laid out as its shared
+memory, 12 combines each with one reduction; its bound analysis redone
+here in Python integers, and fq_dw.cuh's product and reduction against
+Python's), for fq12_mul024_pre, fq12_mul024 and fq12_sq,
+the teams of csrc/fq12_mul024_team.cuh and fq12_sq_team.cuh
+as their kernels schedule them (fq12_team_block: blocks of 32 elements,
 13 or 12 members into a scratch laid out as its shared memory, then 6
 combines), for miller_step the team of csrc/miller_step_team.cuh in both
 instances (the same skeleton, team_block of csrc/team.cuh, with three or
@@ -114,6 +119,10 @@ def host_lib(tmp_path_factory):
     lib.host_signed_sum.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int8)] + [ctypes.c_int] * 4 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, u32p, ctypes.c_uint32]
     lib.host_signed_sum.restype = ctypes.c_int
+    lib.host_fq12_mul_plan.argtypes = [ctypes.POINTER(ctypes.c_int8)] * 2 + [u32p]
+    lib.host_fq12_mul_plan.restype = ctypes.c_int
+    lib.host_dw.argtypes = [ctypes.c_int, ctypes.c_longlong, u32p, u32p, u32p]
+    lib.host_dw.restype = ctypes.c_int
     return lib
 
 
@@ -224,6 +233,216 @@ def test_header_fq12_mul_team_equals_plain(host_lib, order, batch):
     b = _with_edge_tail(rand_field(351, (3, 2, 3, 2, batch)))
     got = _run_host(host_lib, order, [a, b], TP.Q)
     assert np.array_equal(got, tc.fq12_mul_plain(*_tensors([a, b]), TP.Q).numpy())
+
+
+# ---- kernel_fq12_mul.cu's team: lazy reduction (csrc/fq12_mul_team.cuh) ----
+
+_XI = ((9, -1), (1, 9))  # xi = 9 + u on (x0, x1): (9 x0 - x1, x0 + 9 x1)
+
+
+def _lazy_weights():
+    """The 12 output base-field coefficients of the Fq12 product, each as
+    weights over the team's 36 scratch entries (member w's X0 at 2w, X1 at
+    2w + 1), derived here on formal member products along the oracle's
+    Karatsuba tree (bn_tpu_torch/oracle.py, fq6_mul and fq12_mul): an Fq2
+    value is {(w, p): n}, the sum of n xi^p P_w, and P_w = (X0 - q^2, X1)."""
+    def lin(*terms):
+        out = {}
+        for sign, x in terms:
+            for key, n in x.items():
+                out[key] = out.get(key, 0) + sign * n
+        return {key: n for key, n in out.items() if n}
+
+    def xi(x):
+        return {(w, p + 1): n for (w, p), n in x.items()}
+
+    def fq6(k):  # Fq6 product k from its members 6k .. 6k + 5
+        aa, bb, cc, t12, t01, t02 = ({(6 * k + j, 0): 1} for j in range(6))
+        return [lin((1, xi(lin((1, t12), (-1, bb), (-1, cc)))), (1, aa)),
+                lin((1, t01), (-1, aa), (-1, bb), (1, xi(cc))),
+                lin((1, t02), (-1, aa), (1, bb), (-1, cc))]
+
+    A, B, C = fq6(0), fq6(1), fq6(2)
+    out = [lin((1, A[0]), (1, xi(B[2]))), lin((1, A[1]), (1, B[0])), lin((1, A[2]), (1, B[1]))]
+    out += [lin((1, C[s]), (-1, A[s]), (-1, B[s])) for s in range(3)]
+    weights = []
+    for c in range(6):
+        for comp in range(2):
+            wt = [0] * 36
+            for (w, p), n in out[c].items():
+                mat = ((1, 0), (0, 1))
+                for _ in range(p):
+                    mat = tuple(tuple(sum(_XI[i][k] * mat[k][j] for k in range(2)) for j in range(2)) for i in range(2))
+                for s in range(2):
+                    wt[2 * w + s] += n * mat[comp][s]
+            weights.append(wt)
+    return weights
+
+
+def _lazy_plan(lib):
+    """The header's plan as weights, and its constants (K, BN_DW_SUM_BITS,
+    BN_DW_REDC_BITS, BN_DW_EST_LOW, BN_DW_EST_SHIFT, est)."""
+    terms, counts = (ctypes.c_int8 * (12 * 24))(), (ctypes.c_int8 * 12)()
+    consts = (ctypes.c_uint32 * 7)()
+    assert lib.host_fq12_mul_plan(terms, counts, consts) == 0
+    nine = consts[6]
+    weights = []
+    for i in range(12):
+        wt = [0] * 36
+        for t in range(counts[i]):
+            code = terms[24 * i + t]
+            wt[(abs(code) & (nine - 1)) - 1] = (9 if abs(code) & nine else 1) * (1 if code > 0 else -1)
+        weights.append(wt)
+    return weights, list(consts)[:6]
+
+
+_ENTRY_MIN = (TP.Q ** 2 - (TP.Q - 1) ** 2, 0)  # X0, X1: each scratch entry's range
+_ENTRY_MAX = (TP.Q ** 2 + (TP.Q - 1) ** 2, 2 * (TP.Q - 1) ** 2)
+
+
+def test_header_fq12_mul_lazy_bounds(host_lib):
+    """The bound analysis, redone with Python integers: the header's
+    combine table equals this file's own derivation, and each combine's worst
+    case over the entries' ranges, plus K q^2, is non-negative and below
+    2^BN_DW_SUM_BITS, its REDC below 2^BN_DW_REDC_BITS; dw_canonical's
+    quotient estimate is floor(r / q) or one less for every r in that range
+    (checked on each interval of t = r >> BN_DW_EST_LOW where the estimate
+    is constant)."""
+    q, R = TP.Q, 1 << 256
+    weights, (K, sum_bits, redc_bits, est_low, est_shift, est) = _lazy_plan(host_lib)
+    assert weights == _lazy_weights()
+    assert sum(w != 0 for wt in weights for w in wt) == 168
+    for i, wt in enumerate(weights):
+        lo = K * q * q + sum(w * (_ENTRY_MIN[e % 2] if w > 0 else _ENTRY_MAX[e % 2]) for e, w in enumerate(wt))
+        hi = K * q * q + sum(w * (_ENTRY_MAX[e % 2] if w > 0 else _ENTRY_MIN[e % 2]) for e, w in enumerate(wt))
+        assert 0 <= lo and hi < 1 << sum_bits, i
+        assert (hi + (R - 1) * q) >> 256 < 1 << redc_bits, i
+    assert max(_ENTRY_MAX) < 1 << 512 and (2 * q - 2) ** 2 < 1 << 512 and 2 * q < R
+    shift = 32 + est_shift
+    assert est == (1 << shift) // ((q >> est_low) + 1) < 1 << 32
+    t_end = 1 << (redc_bits - est_low)
+    k, t = 0, 0
+    while t < t_end:  # the estimate is k for t in [t, t_next)
+        t_next = min(t_end, -(-((k + 1) << shift) // est))
+        r_lo, r_hi = t << est_low, (t_next << est_low) - 1
+        assert r_lo // q >= k and r_hi // q <= k + 1, (k, t)
+        k, t = k + 1, t_next
+
+
+def _lazy_entries(a, b):
+    """The members' 36 scratch values for one element, a and b its 12 raw
+    coefficients each (base-field index 6i + 2s + c of c{i}.c{s}.{c})."""
+    q = TP.Q
+
+    def add2(x, y):
+        return ((x[0] + y[0]) % q, (x[1] + y[1]) % q)
+
+    def operands(v):
+        c0 = [(v[2 * s], v[2 * s + 1]) for s in range(3)]
+        c1 = [(v[6 + 2 * s], v[7 + 2 * s]) for s in range(3)]
+        return [[x[0], x[1], x[2], add2(x[1], x[2]), add2(x[0], x[1]), add2(x[0], x[2])]
+                for x in (c0, c1, [add2(c0[s], c1[s]) for s in range(3)])]
+
+    xa, xb = operands(a), operands(b)
+    out = []
+    for w in range(18):
+        x, y = xa[w // 6][w % 6], xb[w // 6][w % 6]
+        p0, p1 = x[0] * y[0], x[1] * y[1]
+        out += [p0 - p1 + q * q, (x[0] + x[1]) * (y[0] + y[1]) - p0 - p1]
+    return out
+
+
+def _lazy_extremal_lanes(weights, K, n=37, draws=1500):
+    """n elements (pairs of 12 raw coefficients) for the team: every
+    coefficient q - 1, then a zero operand against q - 1, then among `draws`
+    elements whose coefficients are drawn from 0, 1 and q - 1 those that give
+    each combine's sum its largest and its least value, then random field
+    elements."""
+    q = TP.Q
+    rng = np.random.default_rng(360)
+    edge = (0, 1, q - 1)
+    cands = [([edge[i] for i in rng.integers(0, 3, 12)], [edge[i] for i in rng.integers(0, 3, 12)])
+             for _ in range(draws)]
+    sums = []
+    for a, b in cands:
+        x = _lazy_entries(a, b)
+        sums.append([K * q * q + sum(w * v for w, v in zip(wt, x) if w) for wt in weights])
+    lanes = [([q - 1] * 12, [q - 1] * 12), ([0] * 12, [q - 1] * 12)]
+    for i in range(12):
+        col = [s[i] for s in sums]
+        lanes += [cands[col.index(max(col))], cands[col.index(min(col))]]
+    while len(lanes) < n:
+        lanes.append(([int.from_bytes(rng.bytes(40), "big") % q for _ in range(12)],
+                      [int.from_bytes(rng.bytes(40), "big") % q for _ in range(12)]))
+    return lanes[:n]
+
+
+@pytest.mark.parametrize("order", ["fq12_mul_team", "fq12_mul_team_reverse"], ids=["in-order", "reverse"])
+def test_header_fq12_mul_team_extremal_operands(host_lib, order):
+    """The lazy team, members in order and reversed, its scratch poisoned
+    before every block (team_run), on a ragged batch of 37 elements whose
+    operands reach the combines' bounds: every coefficient q - 1, and the
+    0 / 1 / q - 1 mixes that maximise and minimise each combine's signed
+    sum; bit for bit equal to the plain version and to the oracle."""
+    from bn_tpu_torch import oracle as O
+
+    weights, consts = _lazy_plan(host_lib)
+    lanes = _lazy_extremal_lanes(weights, consts[0])
+
+    def limbs(side):  # (1, 2, 3, 2, 16, 37): coefficient k of lane l is lanes[l][side][k]
+        x = TP.ints_to_limbs([lanes[l][side][k] for k in range(12) for l in range(37)])  # (16, 12 * 37)
+        return np.ascontiguousarray(np.moveaxis(x.reshape(16, 12, 37), 0, 1).reshape(1, 2, 3, 2, 16, 37))
+
+    a, b = limbs(0), limbs(1)
+    got = _run_host(host_lib, order, [a, b], TP.Q)
+    assert np.array_equal(got, tc.fq12_mul_plain(*_tensors([a, b]), TP.Q).numpy())
+
+    def oracle_value(v):
+        m = [TP.from_mont(x, TP.Q) for x in v]
+        return tuple(tuple((m[6 * i + 2 * s], m[6 * i + 2 * s + 1]) for s in range(3)) for i in range(2))
+
+    flat = got.reshape(12, 16, 37)
+    for lane, (x, y) in enumerate(lanes):
+        want = O.fq12_mul(oracle_value(x), oracle_value(y))
+        want = [TP.to_mont(want[i][s][c], TP.Q) for i in range(2) for s in range(3) for c in range(2)]
+        assert TP.limbs_to_ints(flat[:, :, lane].T) == want, lane
+
+
+def test_header_dw_product_and_reduction_equal_python(host_lib):
+    """fq_dw.cuh's whole product on edge words and random values, and its
+    REDC with dw_canonical on sums from 0 to the largest its contract takes
+    (t + (2^256 - 1) q < 2^515, so that the REDC is below 2^259), at q^2
+    multiples, and
+    at t = (j q + d) 2^256, whose reduction sits at each quotient's edge
+    (j < 37, d = -1, 0, 1): against Python's a b and t 2^-256 mod q."""
+    q, R = TP.Q, 1 << 256
+    rng = np.random.default_rng(370)
+
+    def big(bits):
+        return int.from_bytes(rng.bytes(bits // 8 + 1), "big") % (1 << bits)
+
+    def words(v, n):
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
+
+    def u32(vals):
+        return (ctypes.c_uint32 * max(len(vals), 1))(*vals)
+
+    ops = [0, 1, (1 << 32) - 1, R - 1, q - 1, 2 * q - 2, sum(0xFFFFFFFF << (64 * i) for i in range(4))]
+    pairs = [(x, y) for x in ops for y in ops] + [(big(256), big(256)) for _ in range(30)]
+    out = (ctypes.c_uint32 * (16 * len(pairs)))()
+    assert host_lib.host_dw(0, len(pairs), u32([w for x, _ in pairs for w in words(x, 8)]),
+                            u32([w for _, y in pairs for w in words(y, 8)]), out) == 0
+    assert [sum(out[16 * i + j] << (32 * j) for j in range(16)) for i in range(len(pairs))] == [x * y for x, y in pairs]
+
+    top = (1 << 515) - (R - 1) * q - 1
+    sums = [0, 1, top, top - 1, top - R, 86 * q * q, 86 * q * q - 1, q * R, q * R - 1]
+    sums += [(j * q + d) * R for j in range(37) for d in (-1, 0, 1) if j * q + d >= 0]
+    sums += [big(515) % top for _ in range(40)]
+    out = (ctypes.c_uint32 * (8 * len(sums)))()
+    assert host_lib.host_dw(1, len(sums), u32([w for t in sums for w in words(t, 17)]), u32([]), out) == 0
+    r_inv = pow(R, -1, q)
+    got = [sum(out[8 * i + j] << (32 * j) for j in range(8)) for i in range(len(sums))]
+    assert got == [t * r_inv % q for t in sums]
 
 
 @pytest.mark.parametrize("order", ["in-order", "reverse"])

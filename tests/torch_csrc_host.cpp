@@ -1,6 +1,6 @@
 // Host build of the port's CUDA field/tower/curve headers (bn_tpu_torch/csrc/
-// carry.cuh, fq.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
-// fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
+// carry.cuh, fq.cuh, fq_dw.cuh, fq_group.cuh, tower.cuh, team.cuh, fq12_team.cuh,
+// fq12_mul_team.cuh, fq12_mul024_team.cuh, fq12_sq_team.cuh, fq12_cyclo_team.cuh,
 // g2_step_team.cuh, miller_step_team.cuh, curve.cuh, curve_team.cuh,
 // signed_sum.cuh are plain
 // C++ when no CUDA compiler is at work: carry.cuh's PTX primitives are their
@@ -14,6 +14,7 @@
 #include "curve_team.cuh"
 #include "fq12_cyclo_team.cuh"
 #include "fq_group.cuh"
+#include "fq12_mul_team.cuh"
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
@@ -143,8 +144,7 @@ static void team_run(const Team& team, int64_t rows, int64_t B, const Mod& m, bo
   }
 }
 
-// fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul.cu,
-// kernel_fq12_mul024.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu and
+// fq12_team_block (fq12_team.cuh), the block of kernel_fq12_mul024.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu and
 // kernel_fq12_cyclo_sq.cu: the MEMBERS members write their Fq2 products into
 // the scratch, then the 6 combines read it and store.
 template <int MEMBERS, class Member, class Combine>
@@ -298,8 +298,9 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
   Mod m;
   for (int i = 0; i < BN_NW; i++) m.w[i] = mod[i];
   m.inv = inv;
-  if (op == OP_FQ12_MUL_TEAM || op == OP_FQ12_MUL_TEAM_REVERSE) {
-    fq12_team<BN_TEAM_MEMBERS>(Fq12MulMember{a, b}, Fq12MulCombine(), o, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE);
+  if (op == OP_FQ12_MUL_TEAM || op == OP_FQ12_MUL_TEAM_REVERSE) {  // kernel_fq12_mul.cu's team, lazy reduction
+    if (!fq12_mul_modulus_is_q(mod)) return 1;
+    team_run(Fq12MulTeam{a, b, o}, rows, B, m, op == OP_FQ12_MUL_TEAM_REVERSE, [](int, Fq12MulTeam::Shared&) {});
     return 0;
   }
   if (op == OP_FQ12_MUL024_TEAM || op == OP_FQ12_MUL024_TEAM_REVERSE) {  // f, ell0, scaled
@@ -438,6 +439,41 @@ extern "C" int host_run(int op, const int32_t* a, const int32_t* b, const int32_
 
 // miller_step: f (a), the step's coefficients (c), the G1 point (px, py);
 // square = 1 squares f first, as on a doubling step.
+// fq12_mul_team.cuh's plan and the constants its bounds are stated in:
+// terms (12 x 24 codes), counts (12), and consts = K, BN_DW_SUM_BITS,
+// BN_DW_REDC_BITS, BN_DW_EST_LOW, BN_DW_EST_SHIFT, est, BN_MUL_NINE.
+extern "C" int host_fq12_mul_plan(int8_t* terms, int8_t* counts, uint32_t* consts) {
+  const Fq12MulPlan& p = kFq12MulPlan;
+  memcpy(terms, p.term, sizeof p.term);
+  memcpy(counts, p.terms, sizeof p.terms);
+  const uint32_t c[7] = {BN_MUL_OFFSET_K, BN_DW_SUM_BITS, BN_DW_REDC_BITS, BN_DW_EST_LOW, BN_DW_EST_SHIFT, p.est,
+                         BN_MUL_NINE};
+  memcpy(consts, c, sizeof c);
+  return 0;
+}
+
+// fq_dw.cuh on n values: op 0 dw_mul of a[i] and b[i] (8 words each) into
+// out (16 words); op 1 dw_redc then dw_canonical of a[i] (17 words) into out
+// (8 words), with the modulus q.
+extern "C" int host_dw(int op, long long n, const uint32_t* a, const uint32_t* b, uint32_t* out) {
+  Mod m;
+  const DwInt q = dw_q();
+  for (int i = 0; i < BN_NW; i++) m.w[i] = q.w[i];
+  m.inv = dw_q_inv();
+  for (long long i = 0; i < n; i++) {
+    if (op == 0) {
+      dw_mul(out + i * BN_DW, a + i * BN_NW, b + i * BN_NW);
+    } else {
+      uint32_t t[BN_DW_ACC], r[BN_NW + 1];
+      memcpy(t, a + i * BN_DW_ACC, sizeof t);
+      dw_redc(r, t, m);
+      const Fq v = dw_canonical(r, kFq12MulPlan.est, m);
+      memcpy(out + i * BN_NW, v.w, sizeof v.w);
+    }
+  }
+  return 0;
+}
+
 extern "C" int host_miller_step(int square, const int32_t* f, const int32_t* c, const int32_t* px,
                                 const int32_t* py, int32_t* o, long long rows, long long B, const uint32_t* mod,
                                 uint32_t inv) {

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """Where a block of one of the port's team kernels spends its time on the
-card: csrc/kernel_fq12_mul.cu, kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu
-(the skeleton fq12_team_block of csrc/fq12_team.cuh),
-kernel_fq12_cyclo_sq_chain.cu, kernels_g2_step.cu or kernel_miller_step.cu.
+card: csrc/kernel_fq12_mul.cu (its team of csrc/fq12_mul_team.cuh on
+team_block_on), kernel_fq12_mul024_pre.cu, kernel_fq12_sq.cu (the skeleton
+fq12_team_block of csrc/fq12_team.cuh), kernel_fq12_cyclo_sq_chain.cu,
+kernels_g2_step.cu or kernel_miller_step.cu.
 
 fq12_mul (the default), fq12_mul024_pre, fq12_sq:
 
 Builds, with the package's flags, a kernel that runs the package's team block
-(fq12_team_block with the kernel's member and combine, under its
-__launch_bounds__) with marks that read the multiprocessor's cycle counter
-(clock64) in every warp at the block's four marks: at the start, after the
-warp's member has written its Fq2 product to shared memory, after the barrier,
-and after the combine (warps 0-5) or at once (the rest).  A second instance
-swaps the member for one that does the same loads and pre-sums but adds its
-two operands instead of multiplying them, so that the member phase splits into
-loads and pre-sums against the three Montgomery products.  For each batch it prints one
+(the kernel's team, or fq12_team_block with the kernel's member and combine,
+under its __launch_bounds__) with marks that read the multiprocessor's cycle
+counter (clock64) in every warp at the block's four marks: at the start,
+after the warp's member has written its products to shared memory, after the
+barrier, and after the combine (warps 0-11 for fq12_mul, 0-5 for the others)
+or at once (the rest).  A second instance swaps the member for one that does
+the same loads and pre-sums but stores or adds its two operands instead of
+multiplying them, so that the member phase splits into loads and pre-sums
+against the products (fq12_mul: three whole products; the others: three
+Montgomery products).  For each batch it prints one
 JSON line per instance: the kernel's time (CUDA events, 50 launches after a
 warm-up, the instances in turns), and over all blocks the median cycles of
 the member phase (slowest and mean warp of a block), of the wait at the
 barrier (from the slowest member's arrival to the release), of the combine
-(slowest warp, and each of the 6 combines), and of the block from its first
+(slowest warp, and each combine), and of the block from its first
 warp's start to its last warp's end; with the SM clock nvidia-smi reads right
 after, and the limbs' equality with the package's kernel.  A batch of 32 is
 one block alone on the card.
@@ -93,28 +96,35 @@ from bn_tpu_torch.ops import tower_cuda as tc  # noqa: E402
 SOURCE = r"""
 #include "launch.cuh"
 #include "fq12_cyclo_team.cuh"
+#include "fq12_mul_team.cuh"
 #include "fq12_mul024_team.cuh"
 #include "fq12_sq_team.cuh"
 #include "g2_step_team.cuh"
 #include "miller_step_team.cuh"
 #include "curve_team.cuh"
 
-// Each team's member from three operand pointers, with its products (the
-// package's member) or with an addition of its two operands in their place.
-struct MulProducts {
-  const int32_t *a, *b, *c;
-  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    return Fq12MulMember{a, b}(w, e, B, m);
+// fq12_mul's lazy team with a member that does the same reads of the stage
+// and pre-sums and stores its two operands in place of the whole products.
+struct MulSumsTeam : Fq12MulTeam {
+  __device__ __forceinline__ void phase(int p, const TeamLane& t, int64_t B, Shared& sh, const Mod& m) const {
+    if (p != 1) return Fq12MulTeam::phase(p, t, B, sh, m);
+    const uint32_t* in = &sh.in[0][0][0] + t.lane;
+    uint32_t* tab = &sh.x[0][0][0] + t.lane;
+    const int k = t.w / 6, j = t.w % 6;
+    const Fq2 x = fq12_mul_operand(Fq12Shared{in + 6 * k * BN_NW * BN_TEAM_LANES}, j, m);
+    const Fq2 y = fq12_mul_operand(Fq12Shared{in + (18 + 6 * k) * BN_NW * BN_TEAM_LANES}, j, m);
+    uint32_t v[BN_DW];
+    for (int i = 0; i < BN_NW; i++) {
+      v[i] = x.c0.w[i] ^ y.c0.w[i];
+      v[BN_NW + i] = x.c1.w[i] ^ y.c1.w[i];
+    }
+    dw_tab_store(tab, BN_TEAM_LANES, 2 * t.w, v);
+    dw_tab_store(tab, BN_TEAM_LANES, 2 * t.w + 1, v);
   }
 };
-struct MulSums {
-  const int32_t *a, *b, *c;
-  __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
-    const int64_t off = fq12_offset(e, B);
-    const int k = w / 6, j = w % 6;
-    return fq2_add(fq12_team_operand(a + off, B, k, j, m), fq12_team_operand(b + off, B, k, j, m), m);
-  }
-};
+
+// Each other team's member from three operand pointers, with its products
+// (the package's member) or with an addition of its two operands in their place.
 struct Mul024Products {
   const int32_t *a, *b, *c;
   __device__ __forceinline__ Fq2 operator()(int w, int64_t e, int64_t B, const Mod& m) const {
@@ -144,10 +154,12 @@ struct SqSums {
   }
 };
 
+// the clock at a block's N marks (4 for two phases, 6 for three)
+template <int N = 4>
 struct ClockMarks {
-  long long t[4];
+  long long t[N];
   __device__ __forceinline__ void operator()(int i) {
-    if (i == 3) __syncwarp();  // the warp's last lane done
+    if (i == N - 1) __syncwarp();  // the warp's last lane done
     t[i] = clock64();
   }
 };
@@ -157,12 +169,36 @@ template <int MEMBERS, int MIN_BLOCKS, class Member, class Combine>
 __global__ void __launch_bounds__(BN_TEAM_LANES * MEMBERS, MIN_BLOCKS)
 k_phases(const int32_t* __restrict__ a, const int32_t* __restrict__ b, const int32_t* __restrict__ c,
          int32_t* __restrict__ o, int64_t rows, int64_t B, Mod m, long long* __restrict__ clocks) {
-  ClockMarks marks;
+  ClockMarks<> marks;
   fq12_team_block<MEMBERS>(o, rows, B, m, Member{a, b, c}, Combine(), marks);
   if (threadIdx.x % BN_TEAM_LANES == 0) {
     long long* row = clocks + ((int64_t)blockIdx.x * MEMBERS + threadIdx.x / BN_TEAM_LANES) * 4;
     for (int i = 0; i < 4; i++) row[i] = marks.t[i];
   }
+}
+
+// fq12_mul's team block (team_block_on on dynamic shared memory, the body of
+// k_fq12_mul, under its __launch_bounds__)
+template <class Team>
+__global__ void __launch_bounds__(BN_TEAM_LANES * BN_TEAM_MEMBERS, 1)
+k_mul_phases(const Team team, int64_t n, int64_t B, Mod m, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char scratch[];
+  ClockMarks<2 * Team::kPhases> marks;
+  team_block_on(team, *reinterpret_cast<typename Team::Shared*>(scratch), n, B, m, marks);
+  if (threadIdx.x % BN_TEAM_LANES == 0) {
+    long long* row = clocks + ((int64_t)blockIdx.x * BN_TEAM_MEMBERS + threadIdx.x / BN_TEAM_LANES) * 2 * Team::kPhases;
+    for (int i = 0; i < 2 * Team::kPhases; i++) row[i] = marks.t[i];
+  }
+}
+
+template <class Team>
+static int mul_phases_run(const Team& team, long long n, long long B, const Mod& m, void* clocks, void* stream) {
+  const int bytes = (int)sizeof(typename Team::Shared);
+  cudaError_t rc = cudaFuncSetAttribute(k_mul_phases<Team>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  k_mul_phases<Team><<<bn_grid(n, BN_TEAM_LANES), BN_TEAM_LANES * BN_TEAM_MEMBERS, bytes, (cudaStream_t)stream>>>(
+      team, n, B, m, (long long*)clocks);
+  return (int)cudaGetLastError();
 }
 
 // kernel 0: fq12_mul (a, b), 1: fq12_mul024_pre (f, ell0, scaled), 2: fq12_sq (a)
@@ -174,9 +210,10 @@ extern "C" int bn_phases(int kernel, int products, const void* a, const void* b,
 #define BN_PHASES(MEMBERS, MIN_BLOCKS, MEMBER, COMBINE)                                                   \
   k_phases<MEMBERS, MIN_BLOCKS, MEMBER, COMBINE><<<grid, BN_TEAM_LANES * MEMBERS, 0, (cudaStream_t)stream>>>( \
       (const int32_t*)a, (const int32_t*)b, (const int32_t*)c, (int32_t*)o, rows, B, m, (long long*)clocks)
-  if (kernel == 0 && products) BN_PHASES(BN_TEAM_MEMBERS, 1, MulProducts, Fq12MulCombine);
-  else if (kernel == 0) BN_PHASES(BN_TEAM_MEMBERS, 1, MulSums, Fq12MulCombine);
-  else if (kernel == 1 && products) BN_PHASES(BN_MUL024_MEMBERS, BN_MUL024_MIN_BLOCKS, Mul024Products, Fq12Mul024Combine);
+  const Fq12MulTeam mul{(const int32_t*)a, (const int32_t*)b, (int32_t*)o};
+  if (kernel == 0 && products) return mul_phases_run(mul, rows * B, B, m, clocks, stream);
+  if (kernel == 0) return mul_phases_run(MulSumsTeam{mul}, rows * B, B, m, clocks, stream);
+  if (kernel == 1 && products) BN_PHASES(BN_MUL024_MEMBERS, BN_MUL024_MIN_BLOCKS, Mul024Products, Fq12Mul024Combine);
   else if (kernel == 1) BN_PHASES(BN_MUL024_MEMBERS, BN_MUL024_MIN_BLOCKS, Mul024Sums, Fq12Mul024Combine);
   else if (products) BN_PHASES(BN_SQ_MEMBERS, BN_SQ_MIN_BLOCKS, SqProducts, Fq12SqCombine);
   else BN_PHASES(BN_SQ_MEMBERS, BN_SQ_MIN_BLOCKS, SqSums, Fq12SqCombine);
@@ -363,12 +400,12 @@ LANES = 32
 CHAIN_MEMBERS = 6
 CURVE = ("point_add", "point_double")
 STEPS = ("double_step", "madd_step")
-# the teams of fq12_team_block: kernel -> (bn_phases' kernel index, members,
-# operand structs: an Fq12 element, an Fq2 (ell0), two Fq2 (scaled))
+# the one-barrier teams: kernel -> (bn_phases' kernel index, members,
+# combines, operand structs: an Fq12 element, an Fq2 (ell0), two Fq2 (scaled))
 TEAMS = {
-    "fq12_mul": (0, 18, [(2, 3, 2), (2, 3, 2)]),
-    "fq12_mul024_pre": (1, 13, [(2, 3, 2), (2,), (2, 2)]),
-    "fq12_sq": (2, 12, [(2, 3, 2)]),
+    "fq12_mul": (0, 18, 12, [(2, 3, 2), (2, 3, 2)]),
+    "fq12_mul024_pre": (1, 13, 6, [(2, 3, 2), (2,), (2, 2)]),
+    "fq12_sq": (2, 12, 6, [(2, 3, 2)]),
 }
 
 
@@ -674,7 +711,9 @@ def team_phases(lib, kernel, batches, card):
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    index, members, structs = TEAMS[kernel]
+    index, members, combines, structs = TEAMS[kernel]
+    marks = 6 if kernel == "fq12_mul" else 4  # fq12_mul's team stages its operands in a phase of its own
+    s = marks - 4  # the member phase's first mark
     package = {"fq12_mul": tc.fq12_mul, "fq12_mul024_pre": tc.fq12_mul024_pre, "fq12_sq": tc.fq12_sq}[kernel]
     words, inv32 = mc._mod_args(P.Q)
     stream = torch.cuda.current_stream().cuda_stream
@@ -685,7 +724,7 @@ def team_phases(lib, kernel, batches, card):
         ptrs = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
         o = torch.empty_like(ins[0])
         blocks = (batch + LANES - 1) // LANES
-        clocks = torch.zeros((blocks, members, 4), dtype=torch.int64, device=dev)
+        clocks = torch.zeros((blocks, members, marks), dtype=torch.int64, device=dev)
         ms = {True: [], False: []}
 
         def launch(products):
@@ -698,19 +737,22 @@ def team_phases(lib, kernel, batches, card):
                 same = bool(torch.equal(o, package(*ins, P.Q)))
         sm_clock = smi("clocks.sm")
         for products in (True, False):
-            c = res[products]  # (blocks, warps, 4)
-            member = c[:, :, 1] - c[:, :, 0]
-            combine = c[:, :6, 3] - c[:, :6, 2]
+            c = res[products]  # (blocks, warps, marks)
+            member = c[:, :, s + 1] - c[:, :, s]
+            combine = c[:, :combines, s + 3] - c[:, :combines, s + 2]
+            stage = {} if s == 0 else {
+                "stage_cycles_slowest_warp": float(np.median((c[:, :, 1] - c[:, :, 0]).max(axis=1))),
+                "stage_barrier_wait_cycles": float(np.median(c[:, :, 2].max(axis=1) - c[:, :, 1].max(axis=1)))}
             print(json.dumps({
                 "kernel": kernel, "batch": batch, "instance": "products" if products else "loads and pre-sums only",
-                "ms": ms[products], "blocks": blocks,
+                "ms": ms[products], "blocks": blocks, **stage,
                 "member_cycles_slowest_warp": float(np.median(member.max(axis=1))),
                 "member_cycles_mean_warp": float(np.median(member.mean(axis=1))),
                 "member_cycles_by_warp": [float(x) for x in np.median(member, axis=0)],
-                "barrier_wait_cycles": float(np.median(c[:, :, 2].max(axis=1) - c[:, :, 1].max(axis=1))),
+                "barrier_wait_cycles": float(np.median(c[:, :, s + 2].max(axis=1) - c[:, :, s + 1].max(axis=1))),
                 "combine_cycles": float(np.median(combine.max(axis=1))),
                 "combine_cycles_by_warp": [float(x) for x in np.median(combine, axis=0)],
-                "block_cycles": float(np.median(c[:, :, 3].max(axis=1) - c[:, :, 0].min(axis=1))),
+                "block_cycles": float(np.median(c[:, :, s + 3].max(axis=1) - c[:, :, 0].min(axis=1))),
                 "sm_clock_after": sm_clock, f"equals_{kernel}": same if products else None, "card": card,
             }), flush=True)
 

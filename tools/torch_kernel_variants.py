@@ -2,9 +2,7 @@
 """Compare builds of the port's Fq12-sized, Miller-step, step and curve kernels on
 the card.  For the team kernels, the team design against the one-thread
 design it replaced (a source this tool keeps, the product out of line):
-fq12_mul (18 warps on 32 elements; THREAD_SOURCE), also against the team on
-a skeleton of its own instead of the shared fq12_team_block
-(MUL_OWN_SKELETON_SOURCE) and against the team with the product inlined;
+fq12_mul (18 warps on 32 elements, lazy reduction; THREAD_SOURCE);
 fq12_mul024_pre (13 warps; MUL024_THREAD_SOURCE) and fq12_sq (12 warps;
 SQ_THREAD_SOURCE), __launch_bounds__ for 2 blocks a multiprocessor, also
 against the team with registers for one block; fq12_cyclo_sq_chain (6 warps, __launch_bounds__ for 2 blocks
@@ -46,7 +44,8 @@ events, 50 launches after a warm-up, or with --graph one replay of the 50
 captured as a CUDA graph, variants in turns: a, b, b, a, or a, b, c,
 c, b, a; with --turns N that sequence N times), and whether every variant
 returns the first one's limbs.  --parent DIR adds to every picked kernel
-the build "parent": the same source file and flags from the checkout DIR
+the build "parent": the same source file, with the flags that checkout's
+ops/build.py gives it, from the checkout DIR
 (an unpacked parent commit), for the before-and-after of a change (for a
 curve label also "parent_thread", its one-thread design); --only VAR ...
 keeps those variants alone (e.g. --only package parent); with --together,
@@ -86,6 +85,7 @@ each multiprocessor, 8448 two; for pow_fixed, 16384 is the two inversions of
 """
 
 import argparse
+import ast
 import ctypes
 import json
 import re
@@ -117,10 +117,8 @@ OWN_VARIANTS = {
     # fq.cuh's product (two arrays of even and odd products) against the lo/hi chains of LOHI_SOURCE
     "mont_mul": {"package": [], "lohi": []},
     "fq12_mul": {
-        "team": ["-DBN_MUL_OUT_OF_LINE"],
+        "team": [],  # whole products and reductions of its own: no Montgomery product to put out of line
         "thread": ["-DBN_MUL_OUT_OF_LINE"],
-        "team_own_skeleton": ["-DBN_MUL_OUT_OF_LINE"],
-        "team_inline": [],
     },
     "fq12_mul024_pre": {
         "team": ["-DBN_MUL_OUT_OF_LINE"],
@@ -195,37 +193,6 @@ k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t
 extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows, long long B,
                            const uint32_t* mod, uint32_t inv, void* stream) {
   k_fq12_mul<<<bn_grid(rows * B, 64), 64, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
-  return (int)cudaGetLastError();
-}
-"""
-MUL_OWN_SKELETON_SOURCE = r"""
-// fq12_mul's team on a block skeleton of its own, the one it had before the
-// shared fq12_team_block of csrc/fq12_team.cuh: the same members, combines
-// and launch, the element's offset computed once for the loads and the store.
-#include "launch.cuh"
-#include "fq12_team.cuh"
-
-__global__ void __launch_bounds__(BN_TEAM_LANES * BN_TEAM_MEMBERS, 1)
-k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ o,
-           int64_t rows, int64_t B, Mod m) {
-  __shared__ uint32_t prods[BN_TEAM_MEMBERS][2][BN_NW][BN_TEAM_LANES];
-  const int lane = threadIdx.x % BN_TEAM_LANES, w = threadIdx.x / BN_TEAM_LANES;
-  const int64_t n = rows * B;
-  int64_t e = (int64_t)blockIdx.x * BN_TEAM_LANES + lane;
-  const bool live = e < n;
-  if (!live) e = n - 1;
-  const int64_t off = fq12_offset(e, B);
-  uint32_t* mine = &prods[0][0][0][0] + lane;
-  fq2_tab_store(mine, BN_TEAM_LANES, w, fq12_mul_member(w, a + off, b + off, B, m));
-  __syncthreads();
-  if (w < BN_TEAM_COMBINES && live)
-    fq2_store(o + off + (int64_t)w * 2 * BN_NLIMB * B, B, fq12_mul_combine(w, mine, BN_TEAM_LANES, m));
-}
-
-extern "C" int bn_fq12_mul(const void* a, const void* b, void* o, long long rows, long long B,
-                           const uint32_t* mod, uint32_t inv, void* stream) {
-  k_fq12_mul<<<bn_grid(rows * B, BN_TEAM_LANES), BN_TEAM_LANES * BN_TEAM_MEMBERS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (const int32_t*)b, (int32_t*)o, rows, B, bn_make_mod(mod, inv));
   return (int)cudaGetLastError();
 }
@@ -891,7 +858,6 @@ __global__ void k_product_loop(const int32_t* __restrict__ a, int32_t* __restric
 """
 OWN_SOURCES = {
     ("fq12_mul", "thread"): THREAD_SOURCE,
-    ("fq12_mul", "team_own_skeleton"): MUL_OWN_SKELETON_SOURCE,
     ("fq12_mul024_pre", "thread"): MUL024_THREAD_SOURCE,
     ("fq12_sq", "thread"): SQ_THREAD_SOURCE,
     ("fq12_cyclo_sq_chain", "thread"): CHAIN_THREAD_SOURCE,
@@ -950,6 +916,16 @@ FLAT_ROWS = {"mod_add": 2, "mod_sub": 2, "mod_neg": 2, "fq2_mul": 5}
 OWN_ARG_RUNS = {"fq12_cyclo_sq_chain": [(1,), (2,), (5,)]}
 
 
+def source_flags_of(root: Path) -> dict:
+    """SOURCE_FLAGS of the checkout at root (its bn_tpu_torch/ops/build.py),
+    so that its kernels build as its own package builds them."""
+    tree = ast.parse((root / "bn_tpu_torch" / "ops" / "build.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "SOURCE_FLAGS" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return {}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -982,6 +958,8 @@ def main():
     out_dir = build.BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
 
+    parent_flags = {} if args.parent is None else source_flags_of(args.parent)
+
     def variants_of(label):
         """variant -> (nvcc flags, source path or None for the package's).
         Every label has "package", the package's source with its
@@ -992,7 +970,7 @@ def main():
         out = {var: (flags, None) for var, flags in OWN_VARIANTS.get(label, VARIANTS).items()}
         out.setdefault("package", (build.SOURCE_FLAGS.get(stem, []), None))
         if args.parent is not None:
-            out["parent"] = (build.SOURCE_FLAGS.get(stem, []), args.parent / "bn_tpu_torch" / "csrc" / f"{stem}.cu")
+            out["parent"] = (parent_flags.get(stem, []), args.parent / "bn_tpu_torch" / "csrc" / f"{stem}.cu")
             if label in CURVE_LABELS:
                 out["parent_thread"] = out["parent"]
         return {v: x for v, x in out.items() if args.only is None or v in args.only}
